@@ -1,0 +1,70 @@
+"""Converters from the JAX package's values to the port's, through numpy.
+
+None of these imports jax: a caller turns JAX arrays into numpy first
+(``jax.tree.map(np.asarray, tree)``), and the converters read fields by name.
+
+* ``config_from_glio``: a ``glio_tpu.config.GlioConfig`` → the port's.
+* ``inputs_from_numpy``: stacked keyframe measurements → ``KeyframeInput``.
+* ``carry_from_numpy`` / ``carry_to_numpy``: the replay carry, as
+  ``replay_from`` takes it, for checkpoint and resume. The JAX carry's
+  GNSS ring and clock drift are not read: this slice has no GNSS factors.
+"""
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import config
+from .models.sliding_window import (KeyframeInput, ReplayCarry,
+                                    SlidingWindowCarry)
+from .solver.manifold import WindowState
+
+
+def config_from_glio(cfg) -> config.GlioConfig:
+    """The port's ``GlioConfig`` with every field of a ``glio_tpu`` one."""
+    sections = dataclasses.asdict(cfg)
+    return config.GlioConfig(**{
+        f.name: f.type(**sections[f.name])
+        for f in dataclasses.fields(config.GlioConfig)})
+
+
+def inputs_from_numpy(imu_acc, imu_gyr, imu_dt, imu_valid, scan, scan_valid,
+                      time, *, device) -> KeyframeInput:
+    """Stacked (T, ...) numpy measurements → ``KeyframeInput`` on ``device``:
+    IMU data and times f64, scans f32, masks bool."""
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a), device=device).to(dtype)
+    return KeyframeInput(
+        imu_acc=t(imu_acc, torch.float64), imu_gyr=t(imu_gyr, torch.float64),
+        imu_dt=t(imu_dt, torch.float64), imu_valid=t(imu_valid, torch.bool),
+        scan=t(scan, torch.float32), scan_valid=t(scan_valid, torch.bool),
+        time=t(time, torch.float64))
+
+
+def _tensors(cls, tree, device):
+    return cls(**{f: torch.as_tensor(np.array(getattr(tree, f)), device=device)
+                  for f in cls._fields})
+
+
+def carry_from_numpy(tree, device) -> ReplayCarry:
+    """A replay carry with numpy leaves and the JAX carry's field names
+    (``base.window.p``, ..., ``imu_seed``) → a ``ReplayCarry`` on ``device``."""
+    b = tree.base
+    base = {f: torch.as_tensor(np.array(getattr(b, f)), device=device)
+            for f in SlidingWindowCarry._fields
+            if f not in ("window", "prior_lin")}
+    base["window"] = _tensors(WindowState, b.window, device)
+    base["prior_lin"] = _tensors(WindowState, b.prior_lin, device)
+    rings = {f: torch.as_tensor(np.array(getattr(tree, f)), device=device)
+             for f in ReplayCarry._fields if f != "base"}
+    return ReplayCarry(base=SlidingWindowCarry(**base), **rings)
+
+
+def carry_to_numpy(carry: ReplayCarry) -> ReplayCarry:
+    """The same structure with numpy leaves (for saving a checkpoint)."""
+    def conv(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().numpy()
+        return type(x)(*(conv(a) for a in x))
+    return conv(carry)

@@ -1,0 +1,70 @@
+"""Builds the port's CUDA kernels from the sources in ``glio_tpu_torch/csrc``.
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface, which the wrappers load with ``ctypes``. The
+library goes to ``build/glio_tpu_torch/`` at the root of the checkout under
+a name that carries a hash of the source and the flags, so an edited source
+is rebuilt and an unchanged one is loaded as it is. A failed build raises
+with nvcc's own error output.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "glio_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+SOURCES = ("knn.cu",)
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME  # reads CUDA_HOME/PATH
+    if CUDA_HOME:
+        candidate = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(candidate):
+            return candidate
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def library_path(source: str) -> Path:
+    text = (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(text).hexdigest()[:16]
+    return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
+
+
+def build(source: str) -> Path:
+    """Compile one source unless a library of the same hash exists."""
+    out = library_path(source)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source} (exit {res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stderr}{res.stdout}")
+    os.replace(tmp, out)
+    return out
+
+
+def build_all() -> float:
+    """Build every kernel of the package; returns the seconds it took."""
+    t0 = time.perf_counter()
+    for source in SOURCES:
+        build(source)
+    return time.perf_counter() - t0
+
+
+def load(source: str) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build(source)))

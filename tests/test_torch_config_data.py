@@ -1,0 +1,75 @@
+"""The port's copies of the config and the simulator stay equal to the JAX
+package's, and the port imports no jax.
+
+``glio_tpu_torch`` cannot import ``glio_tpu`` (its ``__init__`` imports jax,
+which the GPU machine does not have), so it carries copies; these tests are
+what keeps the copies honest. Equality is exact: the simulator is the same
+numpy code on the same seeds.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from glio_tpu import config as jcfg
+from glio_tpu.data.simulator import simulate_episode as jax_simulate
+from glio_tpu_torch import config as tcfg
+from glio_tpu_torch import convert
+from glio_tpu_torch.data.simulator import simulate_episode as port_simulate
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SECTIONS = [f.name for f in dataclasses.fields(jcfg.GlioConfig)]
+
+
+@pytest.mark.parametrize("section", SECTIONS)
+def test_config_defaults_equal(section):
+    j = getattr(jcfg.GlioConfig(), section)
+    t = getattr(tcfg.GlioConfig(), section)
+    assert type(t).__name__ == type(j).__name__
+    assert [(f.name, f.type) for f in dataclasses.fields(t)] == \
+        [(f.name, f.type) for f in dataclasses.fields(j)]
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+
+
+def test_config_from_glio_carries_every_field():
+    cfg = jcfg.GlioConfig().replace(
+        shapes=jcfg.ShapeConfig(scan_points=256, map_points=2048),
+        estimator=jcfg.EstimatorConfig(local_map_width=8, sw_max_iter=4,
+                                       tl2b=(0.1, 0.0, 0.3)))
+    assert dataclasses.asdict(convert.config_from_glio(cfg)) == dataclasses.asdict(cfg)
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_simulator_bit_identical(seed):
+    kw = dict(n_keyframes=5, scan_points=300, seed=seed)
+    j, t = jax_simulate(**kw), port_simulate(**kw)
+    for f in dataclasses.fields(t):
+        a, b = getattr(t, f.name), getattr(j, f.name)
+        assert a.dtype == b.dtype, f.name
+        np.testing.assert_array_equal(a, b, err_msg=f.name)
+
+
+def test_episode_to_inputs_dtypes():
+    import torch
+    inp = port_simulate(n_keyframes=3, scan_points=64, seed=1).to_inputs("cpu")
+    assert inp.scan.dtype == torch.float32 and inp.imu_acc.dtype == torch.float64
+    assert inp.imu_valid.dtype == torch.bool and inp.scan.shape == (3, 64, 3)
+
+
+def test_port_imports_no_jax():
+    code = ("import importlib, pkgutil, sys\n"
+            "import glio_tpu_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(glio_tpu_torch.__path__,"
+            " 'glio_tpu_torch.')]\n"
+            "for n in names: importlib.import_module(n)\n"
+            "assert len(names) > 15, names\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'glio_tpu.')))\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
