@@ -7,7 +7,11 @@ None of these imports jax: a caller turns JAX arrays into numpy first
 * ``inputs_from_numpy``: stacked keyframe measurements → ``KeyframeInput``.
 * ``carry_from_numpy`` / ``carry_to_numpy``: the replay carry, as
   ``replay_from`` takes it, for checkpoint and resume. The JAX carry's
-  GNSS ring and clock drift are not read: this slice has no GNSS factors.
+  GNSS ring and clock drift are not read: the window has no GNSS factors.
+* ``gnss_from_numpy``: GNSS epochs with numpy leaves → ``GnssEpochs``.
+* ``batch_problem_from_numpy``: a batch problem with numpy leaves (a JAX
+  ``BatchProblem`` through ``jax.tree.map(np.asarray, prob)``) →
+  ``models.batch.BatchProblem`` on a device.
 """
 
 import dataclasses
@@ -68,3 +72,26 @@ def carry_to_numpy(carry: ReplayCarry) -> ReplayCarry:
             return x.detach().cpu().numpy()
         return type(x)(*(conv(a) for a in x))
     return conv(carry)
+
+
+def gnss_from_numpy(g):
+    """GNSS epochs with the ``GnssEpochs`` field names and numpy leaves →
+    the port's ``GnssEpochs`` (host numpy, as the batch stage reads it)."""
+    from .data.episode import GnssEpochs
+    return GnssEpochs(**{
+        f.name: (None if getattr(g, f.name, None) is None
+                 else np.asarray(getattr(g, f.name)))
+        for f in dataclasses.fields(GnssEpochs)})
+
+
+def batch_problem_from_numpy(prob, device):
+    """A batch problem with numpy leaves → ``BatchProblem`` on ``device``:
+    floats f64, masks bool, ``system`` int32, indices int64."""
+    from .models.batch import BatchProblem
+    dtypes = {"rel_valid": torch.bool, "ep_valid": torch.bool,
+              "sv_valid": torch.bool, "system": torch.int32,
+              "ep_left": torch.int64, "master": torch.int64}
+    return BatchProblem(**{
+        f: torch.as_tensor(np.array(getattr(prob, f)), device=device).to(
+            dtypes.get(f, torch.float64))
+        for f in BatchProblem._fields})

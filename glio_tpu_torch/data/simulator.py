@@ -1,9 +1,10 @@
-"""Deterministic LiDAR/IMU episode simulator, numpy only.
+"""Deterministic LiDAR/IMU/GNSS episode simulator, numpy only.
 
-A copy of ``PlaneWorld`` and ``simulate_episode`` from
-``glio_tpu/data/simulator.py``: the port cannot import the JAX package (its
-``__init__`` imports jax). ``tests/test_torch_config_data.py`` holds the
-arrays this module makes bit-identical to the JAX package's.
+A copy of ``PlaneWorld``, ``simulate_episode`` and ``simulate_gnss_epochs``
+from ``glio_tpu/data/simulator.py``: the port cannot import the JAX package
+(its ``__init__`` imports jax). ``tests/test_torch_config_data.py`` holds the
+episodes this module makes bit-identical to the JAX package's;
+``tests/test_torch_gnss.py`` holds the GNSS epochs to the JAX package's.
 
 Ground truth is propagated by the same midpoint scheme the estimator
 integrates with, so noise-free, bias-free IMU reproduces it to f64
@@ -15,7 +16,10 @@ and local-graph stages use.
 import numpy as np
 
 from ..factors.imu import ImuParams
-from .episode import Episode
+from ..gnss import dd as dd_mod
+from ..utils import coords as C
+from .episode import Episode, GnssEpochs
+
 
 def _quat_mul(q1, q2):
     w1, x1, y1, z1 = q1
@@ -268,3 +272,134 @@ def simulate_episode(
         acc0=acc_out[0], gyr0=gyr_out[0],
         gt_p=ps[kf_idx], gt_q=qs[kf_idx], gt_v=vs[kf_idx],
     )
+
+
+def simulate_gnss_epochs(gt_p_enu, kf_time, anchor_ecef, station_ecef,
+                         n_sats=20, psr_noise=0.5, epoch_stride=3, seed=0,
+                         max_sv=32, carrier=False, car_noise=0.005,
+                         slip_prob=0.0, amb_cycles_lambda=None):
+    """Synthetic DD-ready GNSS epochs for a simulated trajectory.
+
+    Satellites on a slowly rotating shell; rover raw pseudoranges include
+    the receiver clock, the Sagnac term and noise; station observations are
+    exact, with no atmosphere, so DD is exact up to ``psr_noise``. One epoch
+    every ``epoch_stride`` keyframes, 0.01 s after it.
+
+    With ``carrier=True`` also the carrier channel: rover carrier =
+    geometry + clock + per-arc ambiguity + ``car_noise``; cycle slips per
+    (epoch, satellite) with ``slip_prob``, flagged in ``lli``. Doppler is
+    always the true range rate plus the receiver clock drift.
+    """
+    rng = np.random.default_rng(seed)
+    anchor_ecef = np.asarray(anchor_ecef, float)
+    station_ecef = np.asarray(station_ecef, float)
+    gt_ecef = C.enu2ecef_np(gt_p_enu, anchor_ecef)
+    up = anchor_ecef / np.linalg.norm(anchor_ecef)
+    # Random sky directions biased upward.
+    dirs = rng.normal(size=(n_sats, 3))
+    dirs += 1.2 * up
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    omega = rng.normal(size=(n_sats, 3)) * 1e-4     # slow drift rad/s
+
+    idx = np.arange(0, len(kf_time), epoch_stride)
+    E = len(idx)
+    OMGE, CL = C.OMGE, C.CLIGHT
+    g = GnssEpochs(
+        time=np.asarray(kf_time)[idx] + 0.01,
+        sat_pos=np.zeros((E, max_sv, 3)), sat_vel=np.zeros((E, max_sv, 3)),
+        sat_ddt=np.zeros((E, max_sv)),
+        psr_rov=np.zeros((E, max_sv)), psr_sta=np.zeros((E, max_sv)),
+        psr_rov_corr=np.zeros((E, max_sv)), dopp_rov=np.zeros((E, max_sv)),
+        elevation=np.zeros((E, max_sv)), snr=np.zeros((E, max_sv)),
+        valid=np.zeros((E, max_sv), bool),
+        system=np.zeros((E, max_sv), np.int8),
+        master=np.full((E, 4), -1, np.int32),
+        car_rov=np.zeros((E, max_sv)),
+        car_sta=np.zeros((E, max_sv)),
+        car_valid=np.zeros((E, max_sv), bool),
+        lli=np.zeros((E, max_sv), np.int8),
+        sat_id=np.full((E, max_sv), -1, np.int32),
+    )
+    kf_time = np.asarray(kf_time, float)
+    # Ground-truth rover velocity (central differences over keyframes).
+    v_ecef = np.gradient(gt_ecef, kf_time, axis=0)
+    # Per-arc ambiguities: free-floating metres, or integer multiples of
+    # the carrier wavelength ``amb_cycles_lambda``.
+    if amb_cycles_lambda is not None:
+        amb = amb_cycles_lambda * rng.integers(-150, 150, size=n_sats).astype(float)
+    else:
+        amb = 30.0 * rng.normal(size=n_sats)
+
+    def shell(tt):
+        d = dirs + np.cross(omega * tt, dirs)
+        d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+        return anchor_ecef + 2.2e7 * d
+
+    for e, k in enumerate(idx):
+        t = g.time[e] - g.time[0]
+        rov = gt_ecef[min(k, len(gt_ecef) - 1)]
+        vr = v_ecef[min(k, len(gt_ecef) - 1)]
+        clk = 1e-3 * CL * (1 + 1e-8 * t)  # receiver clock (m)
+        clk_drift = 1e-3 * CL * 1e-8      # m/s
+        sats = shell(t)
+        # Finite-difference velocity, so Doppler agrees with the positions.
+        svel = shell(t + 0.5) - shell(t - 0.5)
+        _, els = C.azel_np(rov, sats)
+        for s in range(n_sats):
+            sat = sats[s]
+            el = float(els[s])
+            if el < np.deg2rad(15):
+                continue
+            rho_u = np.linalg.norm(sat - rov)
+            rho_s = np.linalg.norm(sat - station_ecef)
+            sag_u = OMGE / CL * (sat[0] * rov[1] - sat[1] * rov[0])
+            sag_s = OMGE / CL * (sat[0] * station_ecef[1]
+                                 - sat[1] * station_ecef[0])
+            g.sat_pos[e, s] = sat
+            g.sat_vel[e, s] = svel[s]
+            g.psr_rov[e, s] = rho_u + sag_u + clk + psr_noise * rng.normal()
+            g.psr_sta[e, s] = rho_s + sag_s
+            g.elevation[e, s] = el
+            g.snr[e, s] = 45.0
+            g.system[e, s] = 0 if s < n_sats // 2 else 3
+            g.valid[e, s] = True
+            g.sat_id[e, s] = int(g.system[e, s]) * 100 + s + 1
+            los = (rov - sat) / rho_u
+            sag_rate = OMGE / CL * (
+                svel[s][0] * rov[1] + sat[0] * vr[1]
+                - svel[s][1] * rov[0] - sat[1] * vr[0])
+            g.dopp_rov[e, s] = np.dot(vr - svel[s], los) + sag_rate + clk_drift
+            if carrier:
+                if rng.uniform() < slip_prob and e > 0:
+                    amb[s] = (amb_cycles_lambda * float(rng.integers(-150, 150))
+                              if amb_cycles_lambda is not None
+                              else 30.0 * rng.normal())
+                    g.lli[e, s] = 1
+                g.car_rov[e, s] = (rho_u + sag_u + clk + amb[s]
+                                   + car_noise * rng.normal())
+                g.car_sta[e, s] = rho_s + sag_s
+                g.car_valid[e, s] = True
+        g.master[e] = dd_mod.select_master(g.elevation[e], g.valid[e], g.system[e])
+    return g
+
+
+def drifted_trajectory(n_keyframes, max_drift=6.0):
+    """A 3 Hz drive and its smoothly drifting odometry, for the batch stage.
+
+    The trajectory of the JAX package's batch tests (``tests/test_batch.py``:
+    x = 40·θ, y = 15·sin θ, z = 0.5·θ, θ advancing 3/119 rad per keyframe,
+    heading 0.3·dy/dx), carried to any length. The odometry drifts
+    quadratically in time, to ``max_drift`` m along x at the last keyframe
+    (and 0.6 and 0.4 of that along −y and z), as the tests' drift does.
+
+    Returns (kf_time, p_true, q_true, p_odo), numpy f64.
+    """
+    k = np.arange(n_keyframes, dtype=float)
+    kf_time = k / 3.0
+    th = k * (3.0 / 119.0)
+    p_true = np.stack([40 * th, 15 * np.sin(th), 0.5 * th], -1)
+    yaw = np.gradient(p_true[:, 1], p_true[:, 0] + 1e-9) * 0.3
+    q_true = np.stack([np.cos(yaw / 2), 0 * yaw, 0 * yaw, np.sin(yaw / 2)], -1)
+    s = (k / max(n_keyframes - 1, 1)) ** 2
+    p_odo = p_true + max_drift * s[:, None] * np.array([1.0, -0.6, 0.4])
+    return kf_time, p_true, q_true, p_odo

@@ -6,6 +6,7 @@ counterpart to f64 round-off. ``glio_tpu``'s ``safe_trig`` wrappers are a
 workaround for one XLA build's scalar f64 trig and have no counterpart here.
 """
 
+import numpy as np
 import torch
 
 
@@ -104,3 +105,68 @@ def log(q):
                     2.0 / torch.clamp(w, min=1e-12) * (1.0 - sq / 3.0),
                     angle / n)
     return k * v
+
+
+def qleft(q):
+    """Left-multiplication matrix: ``mul(q, p) == qleft(q) @ p``."""
+    w, x, y, z = q.unbind(-1)
+    m = torch.stack([
+        w, -x, -y, -z,
+        x, w, -z, y,
+        y, z, w, -x,
+        z, -y, x, w,
+    ], dim=-1)
+    return m.reshape(q.shape[:-1] + (4, 4))
+
+
+def qright(p):
+    """Right-multiplication matrix: ``mul(q, p) == qright(p) @ q``."""
+    w, x, y, z = p.unbind(-1)
+    m = torch.stack([
+        w, -x, -y, -z,
+        x, w, z, -y,
+        y, -z, w, x,
+        z, y, -x, w,
+    ], dim=-1)
+    return m.reshape(p.shape[:-1] + (4, 4))
+
+
+def from_ypr(ypr):
+    """ZYX Euler (yaw, pitch, roll; radians) → quaternion, Rz·Ry·Rx
+    (``Utility::ypr2R``)."""
+    y, p, r = ypr.unbind(-1)
+    cy, sy = torch.cos(y / 2), torch.sin(y / 2)
+    cp, sp = torch.cos(p / 2), torch.sin(p / 2)
+    cr, sr = torch.cos(r / 2), torch.sin(r / 2)
+    return torch.stack([
+        cy * cp * cr + sy * sp * sr,
+        cy * cp * sr - sy * sp * cr,
+        cy * sp * cr + sy * cp * sr,
+        sy * cp * cr - cy * sp * sr,
+    ], dim=-1)
+
+
+def to_ypr(q):
+    """Quaternion → ZYX Euler (yaw, pitch, roll), as ``Utility::R2ypr``."""
+    R = to_rotmat(q)
+    y = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    p = torch.atan2(-R[..., 2, 0], torch.sqrt(R[..., 2, 1] ** 2 + R[..., 2, 2] ** 2))
+    r = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    return torch.stack([y, p, r], dim=-1)
+
+
+def slerp_np(q0, q1, t):
+    """Spherical interpolation of one quaternion pair, numpy, for host code
+    (the trajectory despiker)."""
+    q0 = np.asarray(q0, float)
+    q1 = np.asarray(q1, float)
+    d = float(q0 @ q1)
+    if d < 0:
+        q1, d = -q1, -d
+    theta = np.arccos(min(max(d, -1.0), 1.0))
+    if np.sin(theta) < 1e-6:
+        out = (1.0 - t) * q0 + t * q1
+    else:
+        out = (np.sin((1.0 - t) * theta) * q0
+               + np.sin(t * theta) * q1) / np.sin(theta)
+    return out / np.linalg.norm(out)

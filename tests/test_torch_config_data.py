@@ -49,6 +49,9 @@ def test_simulator_bit_identical(seed):
     j, t = jax_simulate(**kw), port_simulate(**kw)
     for f in dataclasses.fields(t):
         a, b = getattr(t, f.name), getattr(j, f.name)
+        if b is None:                    # GNSS, georeference, dense frames
+            assert a is None, f.name
+            continue
         assert a.dtype == b.dtype, f.name
         np.testing.assert_array_equal(a, b, err_msg=f.name)
 

@@ -1,6 +1,6 @@
-"""The port's CUDA path on the card: the k-NN kernel against its plain
-version, bit for bit, and the replay on the card against the replay on the
-CPU.
+"""The port's CUDA path on the card: the k-NN and copy kernels against their
+plain versions, bit for bit, the probe, and the replay and the batch stage
+on the card against the same code on the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 no jax, so it runs on a machine that has only torch:
@@ -15,10 +15,14 @@ import pytest
 import torch
 
 from glio_tpu_torch.config import EstimatorConfig, GlioConfig, ShapeConfig
-from glio_tpu_torch.data.simulator import simulate_episode
+from glio_tpu_torch.data.simulator import (drifted_trajectory, simulate_episode,
+                                           simulate_gnss_epochs)
 from glio_tpu_torch.lidar import neighbors
+from glio_tpu_torch.models import batch
 from glio_tpu_torch.models.sliding_window import SlidingWindowEstimator
 from glio_tpu_torch.ops import knn as knn_mod
+from glio_tpu_torch.ops import probe
+from glio_tpu_torch.solver import banded
 
 pytestmark = pytest.mark.cuda
 F32 = np.float32
@@ -91,3 +95,79 @@ def test_replay_on_card_matches_cpu(cuda):
     c, g = outs["cpu"], outs[str(cuda)]
     assert torch.equal(c.n_lidar_factors, g.n_lidar_factors.cpu())
     np.testing.assert_allclose(g.p.cpu().numpy(), c.p.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (1003,), (0,)])
+def test_copy_kernel_equals_plain_version(cuda, shape):
+    x = torch.tensor(np.random.default_rng(0).normal(size=shape).astype(F32), device=cuda)
+    before = probe.copy.launches
+    y = probe.copy(x)
+    torch.cuda.synchronize()
+    assert probe.copy.launches == before + 1
+    assert torch.equal(y, x) and torch.equal(y, probe.copy_reference(x))
+
+
+def test_probe_passes_on_the_card(cuda, capsys):
+    assert probe.main() == 0
+    out = capsys.readouterr().out
+    assert "CUDA-OK" in out and "copy_f32=1" in out
+
+
+def test_scatter_add_blocks_on_card_equals_cpu(cuda):
+    """Duplicates are summed in a fixed order, so the card gives the CPU's bits."""
+    rng = np.random.default_rng(2)
+    T, hw, D = 50, 3, 6
+    band = rng.normal(size=(T, 2 * hw + 1, D, D))
+    rows = rng.integers(0, T, size=2000)
+    cols = np.clip(rows + rng.integers(-hw, hw + 1, size=2000), 0, T - 1)
+    blocks = rng.normal(size=(2000, D, D))
+    cpu = banded.scatter_add_blocks(torch.tensor(band), rows, cols, torch.tensor(blocks), hw)
+    gpu = banded.scatter_add_blocks(torch.tensor(band, device=cuda), rows, cols,
+                                    torch.tensor(blocks, device=cuda), hw)
+    assert torch.equal(gpu.cpu(), cpu)
+
+
+def _batch_problem(device, T=300):
+    cfg = GlioConfig()
+    anchor = np.asarray(cfg.initialization.anc_ecef)
+    station = np.asarray(cfg.initialization.station_ecef)
+    kf_time, p_true, q_true, p_odo = drifted_trajectory(T)
+    gnss = simulate_gnss_epochs(p_true, kf_time, anchor, station, psr_noise=0.5, seed=4)
+    return cfg, batch.build_problem(cfg, p_odo, q_true, kf_time, gnss, anchor, 0.0,
+                                    station, device=device)
+
+
+def test_batch_on_card_is_deterministic_and_matches_cpu(cuda):
+    """Two solves on the card agree bit for bit; the card and the CPU agree
+    to 3e-4 m and the final costs to 5e-7 relative, 10x the spread that
+    the LM's accept/reject at the cost's round-off gives JAX's own f64
+    solve (a 1e-9 m nudge of the odometry moves it 3.0e-5 m and its cost
+    4.6e-8 relative; PERF.md)."""
+    robust = batch.RobustOpts(dd_huber=1.0, epoch_gate=2.0, rel_huber=5.0)
+    outs = []
+    for dev in (cuda, cuda, "cpu"):
+        cfg, prob = _batch_problem(dev)
+        outs.append(batch.optimize_batch(cfg, prob, robust=robust))
+    (p1, q1, c1), (p2, q2, c2), (pc, _, cc) = outs
+    assert torch.equal(p1, p2) and torch.equal(q1, q2) and c1 == c2
+    np.testing.assert_allclose(p1.cpu().numpy(), pc.numpy(), rtol=0, atol=3e-4)
+    np.testing.assert_allclose(c1, cc, rtol=5e-7)
+
+
+def test_cyclic_reduction_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(3)
+    T, hw, D = 500, 7, 6
+    J = rng.normal(size=(T, 2 * hw + 1, D, D))
+    band = np.zeros_like(J)
+    band[:, hw] = np.einsum("tij,tkj->tik", J[:, hw], J[:, hw]) + 50 * np.eye(D)
+    for o in range(1, hw + 1):
+        blk = 0.3 * J[:T - o, hw + o]
+        band[:T - o, hw + o] = blk
+        band[o:, hw - o] = np.swapaxes(blk, -1, -2)
+    b = rng.normal(size=(T, D))
+    x_c = banded.cyclic_reduction_solve(torch.tensor(band), torch.tensor(b))
+    x_g = banded.cyclic_reduction_solve(torch.tensor(band, device=cuda),
+                                        torch.tensor(b, device=cuda)).cpu()
+    assert (x_g - x_c).abs().max() <= 1e-10 * x_c.abs().max()
+    r = banded.band_matvec(torch.tensor(band), x_g) - torch.tensor(b)
+    assert r.abs().max() < 1e-9

@@ -1,4 +1,4 @@
-"""The JAX trajectory fixture that ``chip_smoke.py`` reads is current.
+"""The JAX fixtures that ``chip_smoke.py`` reads are current.
 
 ``scripts/make_torch_port_fixture.py`` regenerates it here (the 30-keyframe
 bench-shape replay, ~15 s on the CPU) and the stored file must agree:
@@ -6,8 +6,14 @@ n_lidar_factors exactly, positions to 1e-3 m. The positions are not held
 bit for bit because the replay amplifies rounding: a 1e-9 m nudge of its
 start moves keyframe 30 by 3.8e-4 m, so another CPU's instruction set may
 move it by as much.
+
+The batch and pipeline fixtures of ``scripts/make_torch_batch_fixture.py``
+take two minutes of JAX to make, so they are not remade here: the port
+rebuilds the batch problem and must reproduce its stored checksums, and
+both files' configurations and layouts are checked.
 """
 
+import dataclasses
 import importlib.util
 import json
 import os
@@ -34,3 +40,57 @@ def test_fixture_is_current():
     np.testing.assert_allclose(stored["p"], fresh["p"], rtol=0, atol=1e-3)
     np.testing.assert_allclose(stored["q"], fresh["q"], rtol=0, atol=1e-4)
     assert stored["p"].shape == (30, 3)
+
+
+def _batch_script():
+    path = os.path.join(ROOT, "scripts", "make_torch_batch_fixture.py")
+    spec = importlib.util.spec_from_file_location("make_torch_batch_fixture", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_batch_fixture_is_the_ports_problem():
+    """The port's simulator and ``build_problem`` rebuild the problem the
+    stored JAX solves were made from (checksums to 1e-12 relative), so
+    ``chip_smoke.py`` can hold the port's solve on the card against them;
+    and the stored solves are the ones its tolerances assume."""
+    from glio_tpu_torch.config import GlioConfig
+    from glio_tpu_torch.data.simulator import simulate_gnss_epochs
+    from glio_tpu_torch.models import batch
+
+    mod = _batch_script()
+    assert os.path.getsize(mod.BATCH_OUT) < 1 << 20
+    fx = np.load(mod.BATCH_OUT)
+    cfg = GlioConfig()
+    assert json.loads(str(fx["config_json"])) == json.loads(
+        json.dumps(dataclasses.asdict(cfg)))
+    sc = json.loads(str(fx["scenario_json"]))
+    kf_time, p_true, q_true, p_odo, anchor, station = mod.batch_scenario(cfg)
+    gnss = simulate_gnss_epochs(p_true, kf_time, anchor, station, psr_noise=sc["psr_noise"],
+                                epoch_stride=sc["epoch_stride"], seed=sc["seed"])
+    prob = batch.build_problem(cfg, p_odo, q_true, kf_time, gnss, anchor, 0.0, station,
+                               device="cpu")
+    sums = mod.problem_checksums(prob.p_odo, prob.psr_rov, prob.whiten, prob.ep_valid)
+    np.testing.assert_allclose(sums, fx["checksums"], rtol=1e-12, atol=0)
+    assert fx["p_f64"].shape == fx["p_mixed"].shape == (3493, 3)
+    assert fx["cov_diag"].shape == (3493, 6) and bool(fx["calibrated"])
+    rmse = np.sqrt(np.mean(np.sum((fx["p_f64"] - p_true) ** 2, -1)))
+    assert rmse < 0.5
+    # JAX's own mixed-versus-f64 distance, below the 5e-3 m tolerance.
+    assert np.abs(fx["p_mixed"] - fx["p_f64"]).max() < 2e-3
+
+
+def test_pipeline_fixture_layout():
+    mod = _batch_script()
+    assert os.path.getsize(mod.PIPE_OUT) < 1 << 20
+    fx = np.load(mod.PIPE_OUT)
+    assert json.loads(str(fx["config_json"])) == json.loads(
+        json.dumps(dataclasses.asdict(mod.pipeline_config())))
+    n = json.loads(str(fx["scenario_json"]))["n_keyframes"]
+    for key in ("tc_sw_result", "tc_batch_result", "tc_batch_result_f64"):
+        assert fx[key].shape == (n, 12), key
+        assert np.isfinite(fx[key]).all()
+    for key in ("tc_batch_cov", "tc_batch_cov_f64"):
+        assert fx[key].shape == (n, 10), key
+    assert fx["n_lidar_factors"].shape == (n,) and fx["n_lidar_factors"][-1] > 100
