@@ -14,10 +14,15 @@ probe, the batch stage at the UrbanNav Whampoa length, and ``run_pipeline``
 3. kernels against their plain torch versions on the card, on the same
    inputs, bit for bit: the 5-NN at the window association's shape
    (5120 queries, 16,384 map points, coordinates ~300 m from the origin,
-   ~10 % invalid on each side) and two ragged cases; the copy kernel on the
-   probe's 8 x 128 ``arange`` block and on a ragged 1003 elements; kernel
-   and plain times by CUDA events, median of 20; then the voxel grid on
-   the card against the CPU on one 51,200-point map ring;
+   ~10 % invalid on each side) and two ragged cases; the copy kernel
+   against ``clone`` over a size sweep (COPY_SWEEP: the probe's 8 x 128
+   ``arange`` block, a ragged 1003 elements, 4 MiB that stay in the L2,
+   256 MiB + 12 B, and a 256 MiB ``buf[1:]`` view that is not 16-byte
+   aligned), with effective bandwidth (2 x bytes / time) and, for the two
+   sizes beyond the L2, its share of the H100's 3.35 TB/s; kernel and
+   plain times by CUDA events, median of 20; each wrapper's host path per
+   call (enqueue time, no sync); then the voxel grid on the card against
+   the CPU on one 51,200-point map ring;
 4. replay: the 30-keyframe ``simulate_episode(seed=0)`` through
    ``SlidingWindowEstimator.replay``, once to warm up and once timed; the
    kernel must have launched once per keyframe, every output must be
@@ -86,6 +91,15 @@ BATCH_F64_TOL_M = 3e-4        # 10x JAX f64's own spread under a 1e-9 m nudge
 BATCH_MIXED_TOL_M = 5e-3
 YPR_TOL_DEG = 0.05
 M_PER_DEG_LAT = 111_320.0
+COPY_SWEEP = (   # name, elements of a buffer made on the card, first element copied
+    ("probe_8x128", 8 * 128, 0),
+    ("ragged_1003", 1003, 0),
+    ("l2_1Mi", 1 << 20, 0),
+    ("hbm_64Mi_plus_3", (1 << 26) + 3, 0),
+    ("misaligned_64Mi", (1 << 26) + 2, 1),     # buf[1:]: 4 bytes off 16-byte alignment
+)
+L2_BYTES = 50 * 2**20
+HBM_GB_S = 3350.0     # H100 SXM device memory, NVIDIA's data sheet
 F32 = np.float32
 
 
@@ -128,6 +142,64 @@ def _time_ms(fn, reps=20):
     return statistics.median(times)
 
 
+def _host_us(fn, reps=100, rounds=5):
+    """Median over ``rounds`` of the host's microseconds per call across
+    ``reps`` calls that are not waited for: the enqueue path."""
+    fn()
+    per_call = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        per_call.append(1e6 * (time.perf_counter() - t0) / reps)
+    torch.cuda.synchronize()
+    return statistics.median(per_call)
+
+
+def copy_sweep(dev):
+    """The copy kernel against ``clone`` at each size of COPY_SWEEP: both
+    bit for bit equal to the input, both timed (CUDA events, median of 20
+    after one warm-up). Returns the copy_f32 record of the kernels line."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sweep, err = {}, 0.0
+    for name, n, start in COPY_SWEEP:
+        if name == "probe_8x128":
+            x = torch.arange(n, dtype=torch.float32, device=dev).reshape(8, 128)
+        else:
+            x = torch.randn(n, generator=gen, device=dev)[start:]
+        y_k, y_r = probe_mod.copy(x), probe_mod.copy_reference(x)
+        torch.cuda.synchronize()
+        bits = x.view(torch.int32)
+        check(torch.equal(y_k.view(torch.int32), bits) and torch.equal(y_r.view(torch.int32), bits),
+              f"copy {name}: kernel output differs from its input or the plain version")
+        err = max(err, float((y_k - y_r).abs().max()) if x.numel() else 0.0)
+        del y_k, y_r
+        ms = _time_ms(lambda: probe_mod.copy(x))
+        plain_ms = _time_ms(lambda: probe_mod.copy_reference(x))
+        nbytes = 4 * x.numel()
+        rec = {"elements": x.numel(), "ms": ms, "plain_ms": plain_ms,
+               "gb_s": 2 * nbytes / ms / 1e6, "plain_gb_s": 2 * nbytes / plain_ms / 1e6}
+        line = (f"copy {name} ({x.numel()} f32, {nbytes} B): kernel == input == clone bit for "
+                f"bit; kernel {ms:.4f} ms {rec['gb_s']:.1f} GB/s, clone {plain_ms:.4f} ms "
+                f"{rec['plain_gb_s']:.1f} GB/s")
+        if nbytes > L2_BYTES:
+            rec["hbm_share"] = rec["gb_s"] / HBM_GB_S
+            rec["plain_hbm_share"] = rec["plain_gb_s"] / HBM_GB_S
+            line += (f"; of 3.35 TB/s: kernel {100 * rec['hbm_share']:.1f} %, clone "
+                     f"{100 * rec['plain_hbm_share']:.1f} %")
+        print(line + " (median of 20, CUDA events)")
+        sweep[name] = rec
+        del x
+    torch.cuda.empty_cache()
+    probe_x = torch.arange(8 * 128, dtype=torch.float32, device=dev).reshape(8, 128)
+    main = sweep["probe_8x128"]
+    return {"max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "host_us": _host_us(lambda: probe_mod.copy(probe_x)),
+            "plain_host_us": _host_us(lambda: probe_mod.copy_reference(probe_x)),
+            "sweep": sweep}
+
+
 def kernel_phase(dev):
     rng = np.random.default_rng(0)
     cases = {
@@ -154,23 +226,12 @@ def kernel_phase(dev):
     print(f"knn 5120x16384 k=5: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms "
           f"(median of 20, CUDA events)")
 
-    copy_cases = {
-        "probe_8x128": torch.arange(8 * 128, dtype=torch.float32, device=dev).reshape(8, 128),
-        "ragged_1003": torch.tensor(rng.normal(size=1003).astype(F32), device=dev),
-    }
-    copy_err = 0.0
-    for name, x in copy_cases.items():
-        y_k, y_r = probe_mod.copy(x), probe_mod.copy_reference(x)
-        torch.cuda.synchronize()
-        check(torch.equal(y_k, x) and torch.equal(y_k, y_r),
-              f"copy {name}: kernel output differs from its input or the plain version")
-        copy_err = max(copy_err, float((y_k - y_r).abs().max()))
-        print(f"copy {name}: kernel == input == plain, bit for bit")
-    x = copy_cases["probe_8x128"]
-    copy_ms = _time_ms(lambda: probe_mod.copy(x))
-    copy_plain_ms = _time_ms(lambda: probe_mod.copy_reference(x))
-    print(f"copy 8x128 f32: kernel {copy_ms:.4f} ms, plain torch {copy_plain_ms:.4f} ms "
-          f"(median of 20, CUDA events)")
+    copy_kern = copy_sweep(dev)
+    knn_kern = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                "host_us": _host_us(lambda: knn_mod.knn(*main))}
+    print(f"host path per call (enqueue, no sync, median of 5 x 100): knn "
+          f"{knn_kern['host_us']:.2f} us, copy 8x128 {copy_kern['host_us']:.2f} us, "
+          f"clone 8x128 {copy_kern['plain_host_us']:.2f} us")
 
     pts, valid = _cloud(rng, 51200)
     out_c, v_c = neighbors.voxel_downsample(torch.tensor(pts), torch.tensor(valid),
@@ -181,8 +242,7 @@ def kernel_phase(dev):
     check(torch.equal(v_g.cpu(), v_c) and torch.equal(out_g.cpu(), out_c),
           "voxel_downsample differs between the card and the CPU")
     print(f"voxel_downsample 51200 -> 16384: card == CPU ({int(v_c.sum())} kept)")
-    return ({"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms},
-            {"max_abs_err": copy_err, "ms": copy_ms, "plain_ms": copy_plain_ms})
+    return knn_kern, copy_kern
 
 
 def bench_config():

@@ -11,7 +11,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, _launch
 
 K_SUPPORTED = 5
 _CHUNK = 2048
@@ -93,26 +93,21 @@ def knn(query, query_valid, points, points_valid, k: int = 5):
     missing) and (Q, k) int64 indices into ``points`` (−1 where missing).
     """
     _check(query, query_valid, points, points_valid)
-    dev = query.device
-    if dev.type == "cpu":
-        return knn_reference(query, query_valid, points, points_valid, k)
-    if dev.type != "cuda":
-        raise ValueError(f"knn: no kernel for device {dev}")
+    if not query.is_cuda:
+        if query.device.type == "cpu":
+            return knn_reference(query, query_valid, points, points_valid, k)
+        raise ValueError(f"knn: no kernel for device {query.device}")
     if k != K_SUPPORTED:
         raise ValueError(f"knn: the CUDA kernel is built for k={K_SUPPORTED}, got k={k}")
     Q, N = query.shape[0], points.shape[0]
     if Q >= 2**31 or 3 * N >= 2**31:
         raise ValueError("knn: sizes beyond the kernel's int32 indexing")
-    fn = _library()
+    dev = query.device
     out_d = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(query.data_ptr(), query_valid.data_ptr(), points.data_ptr(),
-                 points_valid.data_ptr(), Q, N, out_d.data_ptr(),
-                 out_i.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"knn: kernel launch failed with cudaError {err}")
+    _launch.launch("knn", _library(), query.get_device(), query.data_ptr(),
+                   query_valid.data_ptr(), points.data_ptr(), points_valid.data_ptr(),
+                   Q, N, out_d.data_ptr(), out_i.data_ptr())
     knn.launches += 1
     return out_d, out_i
 

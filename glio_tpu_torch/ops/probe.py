@@ -22,6 +22,9 @@ copy_f32=N knn5_f32=N`` reports the kernel launches the children counted.
 
 ``copy`` is the kernel's wrapper; on a CPU tensor it runs ``copy_reference``
 (``x.clone()``), on a CUDA tensor it launches the kernel or raises.
+``copy_plan`` splits the bytes between the kernel's bulk-copy ring and its
+threads. The probe's 4 KB block goes to the threads alone, so a failure on
+it blames the toolchain and not the bulk-copy machinery.
 """
 
 import ctypes
@@ -32,7 +35,7 @@ import sys
 
 import torch
 
-from . import _build
+from . import _build, _launch
 
 PROBE_SHAPE = (8, 128)
 
@@ -42,10 +45,36 @@ def copy_reference(x):
     return x.clone()
 
 
+STAGE_BYTES = 32 * 1024     # one stage of the kernel's bulk-copy ring
+
+
+def copy_plan(x_ptr: int, y_ptr: int, nbytes: int, sm_count: int) -> tuple[int, int, int, int]:
+    """Split of an ``nbytes`` copy from address ``x_ptr`` to ``y_ptr``
+    between the kernel's two paths: ``(head, body, tail, blocks)``.
+
+    Bytes ``[0, head)`` and ``[head + body, nbytes)`` go to the threads,
+    ``[head, head + body)`` to the bulk-copy ring. The body is 16-byte
+    aligned on both sides and a multiple of 16 bytes; it is empty, and the
+    threads copy everything, when the array is smaller than one stage or
+    when the two addresses differ in their alignment modulo 16. ``blocks``
+    is the grid: one block per stage-sized chunk of the work, at least one
+    and at most ``sm_count``. A plain tuple, as this runs on every launch.
+    """
+    if nbytes < STAGE_BYTES:
+        return nbytes, 0, 0, 1
+    if (x_ptr - y_ptr) % 16:
+        return nbytes, 0, 0, min(sm_count, -(-nbytes // STAGE_BYTES))
+    head = -y_ptr % 16
+    body = (nbytes - head) // 16 * 16
+    return head, body, nbytes - head - body, min(sm_count, -(-body // STAGE_BYTES))
+
+
 @functools.cache
 def _library():
     fn = _build.load("copy.cu").glio_copy_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    # Every argument is a pointer or a size_t, 64 bits on the card's hosts;
+    # ctypes converts a Python int fastest as c_void_p.
+    fn.argtypes = [ctypes.c_void_p] * 8
     fn.restype = ctypes.c_int
     return fn
 
@@ -58,18 +87,16 @@ def copy(x):
         raise TypeError(f"copy: x must be torch.float32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("copy: x must be contiguous")
-    if x.device.type == "cpu":
-        return copy_reference(x)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return copy_reference(x)
         raise ValueError(f"copy: no kernel for device {x.device}")
-    if x.numel() >= 2**31:
-        raise ValueError("copy: sizes beyond the kernel's int32 indexing")
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _library()(x.data_ptr(), y.data_ptr(), x.numel(), stream)
-    if err != 0:
-        raise RuntimeError(f"copy: kernel launch failed with cudaError {err}")
+    index = x.get_device()
+    x_ptr, y_ptr = x.data_ptr(), y.data_ptr()
+    head, body, tail, blocks = copy_plan(x_ptr, y_ptr, 4 * x.numel(), _launch.sm_count(index))
+    _launch.launch("copy", _library(), index, x_ptr, y_ptr, head, body, tail, blocks,
+                   STAGE_BYTES)
     copy.launches += 1
     return y
 

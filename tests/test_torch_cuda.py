@@ -97,14 +97,56 @@ def test_replay_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(g.p.cpu().numpy(), c.p.numpy(), rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("shape", [(8, 128), (1003,), (0,)])
-def test_copy_kernel_equals_plain_version(cuda, shape):
-    x = torch.tensor(np.random.default_rng(0).normal(size=shape).astype(F32), device=cuda)
+STAGE = probe.STAGE_BYTES // 4
+COPY_CASES = {   # name: (elements of a buffer, the view's start, its stop)
+    "empty": (0, 0, None),
+    "probe_8x128": (8 * 128, 0, None),
+    "ragged_1003": (1003, 0, None),
+    "one_stage_minus_1": (STAGE - 1, 0, None),
+    "one_stage": (STAGE, 0, None),
+    "one_stage_plus_1": (STAGE + 1, 0, None),
+    "more_chunks_than_sms_ragged": (300 * STAGE + 3, 0, None),
+    "view_from_1": (300 * STAGE + 4, 1, None),
+    "view_from_2": (300 * STAGE + 4, 2, None),
+    "view_from_3": (300 * STAGE + 4, 3, None),
+    "empty_view_at_3": (16, 3, 3),
+}
+
+
+@pytest.mark.parametrize("case", list(COPY_CASES))
+def test_copy_kernel_equals_plain_version(cuda, case):
+    n, start, stop = COPY_CASES[case]
+    buf = torch.tensor(np.random.default_rng(0).normal(size=n).astype(F32), device=cuda)
+    x = buf[start:stop]
+    if case == "probe_8x128":
+        x = x.reshape(8, 128)
+    if case == "more_chunks_than_sms_ragged":
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert 4 * x.numel() > sms * probe.STAGE_BYTES
     before = probe.copy.launches
     y = probe.copy(x)
     torch.cuda.synchronize()
     assert probe.copy.launches == before + 1
-    assert torch.equal(y, x) and torch.equal(y, probe.copy_reference(x))
+    bits = x.view(torch.int32)
+    assert torch.equal(y.view(torch.int32), bits)
+    assert torch.equal(probe.copy_reference(x).view(torch.int32), bits)
+
+
+def test_knn_launches_on_the_current_stream(cuda):
+    """The inputs are written on a side stream after a sleep; a launch on any
+    other stream would read them before they are written."""
+    src = [torch.tensor(a, device=cuda) for a in CASES["main_path"](np.random.default_rng(0))]
+    d_r, i_r = knn_mod.knn_reference(*src)
+    args = [torch.zeros_like(a) for a in src]
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        for a, s in zip(args, src):
+            a.copy_(s)
+        d_k, i_k = knn_mod.knn(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(i_k, i_r) and torch.equal(d_k, d_r)
 
 
 def test_probe_passes_on_the_card(cuda, capsys):
