@@ -12,17 +12,24 @@ probe, the batch stage at the UrbanNav Whampoa length, and ``run_pipeline``
 2. build: every CUDA kernel of the package, from the sources in the
    checkout (``nvcc``, sm_90a, one process per source, in parallel);
 3. kernels against their plain torch versions on the card, on the same
-   inputs, bit for bit: the 5-NN at the window association's shape
-   (5120 queries, 16,384 map points, coordinates ~300 m from the origin,
-   ~10 % invalid on each side) and two ragged cases; the copy kernel
+   inputs, bit for bit: the 5-NN (``glio_tpu_torch.testing.KNN_CASES``)
+   at the window association's shape (5120 queries, 16,384 map points,
+   coordinates ~300 m from the origin, ~10 % invalid on each side), at the
+   odometry's (1024 and 2048 queries, where ``knn_plan`` splits the map
+   across a cluster), with exact ties across the kernel's map splits
+   (lattice points, a map whose halves are copies), ragged query and map
+   counts, maps smaller than one split, an empty and an all-invalid map;
+   its time at the window's shape beside its FP32 bound (valid pairs x 8 operations over SMs x 128 lanes
+   x the SM clock) and ``topk(cdist)`` as a yardstick; the copy kernel
    against ``clone`` over a size sweep (COPY_SWEEP: the probe's 8 x 128
    ``arange`` block, a ragged 1003 elements, 4 MiB that stay in the L2,
    256 MiB + 12 B, and a 256 MiB ``buf[1:]`` view that is not 16-byte
    aligned), with effective bandwidth (2 x bytes / time) and, for the two
    sizes beyond the L2, its share of the H100's 3.35 TB/s; kernel and
-   plain times by CUDA events, median of 20; each wrapper's host path per
-   call (enqueue time, no sync); then the voxel grid on the card against
-   the CPU on one 51,200-point map ring;
+   plain times by CUDA events around one call queued behind a device sleep
+   (so the host's path to the launch is not counted), median of 20; each
+   wrapper's host path per call (enqueue time, no sync); then the voxel
+   grid on the card against the CPU on one 51,200-point map ring;
 4. replay: the 30-keyframe ``simulate_episode(seed=0)`` through
    ``SlidingWindowEstimator.replay``, once to warm up and once timed; the
    kernel must have launched once per keyframe, every output must be
@@ -80,6 +87,7 @@ from glio_tpu_torch.ops import knn as knn_mod
 from glio_tpu_torch.ops import probe as probe_mod
 from glio_tpu_torch.pipeline import run_pipeline
 from glio_tpu_torch.solver import banded
+from glio_tpu_torch.testing import KNN_CASES, cloud, gpu_clock_mhz, knn_bound_ms, time_device_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "data", "sw_replay_w50_seed0.npz")
@@ -100,7 +108,6 @@ COPY_SWEEP = (   # name, elements of a buffer made on the card, first element co
 )
 L2_BYTES = 50 * 2**20
 HBM_GB_S = 3350.0     # H100 SXM device memory, NVIDIA's data sheet
-F32 = np.float32
 
 
 def check(cond, msg):
@@ -120,26 +127,6 @@ def device_phase():
     print(f"device: {torch.cuda.get_device_name(dev)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} visible")
     return dev
-
-
-def _cloud(rng, n, valid_share=0.9):
-    pts = (rng.uniform(-40.0, 40.0, size=(n, 3)) + [300.0, -80.0, 2.0]).astype(F32)
-    return pts, rng.uniform(size=n) < valid_share
-
-
-def _time_ms(fn, reps=20):
-    """Median of ``reps`` single launches, CUDA events, after one warm-up."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def _host_us(fn, reps=100, rounds=5):
@@ -175,10 +162,11 @@ def copy_sweep(dev):
               f"copy {name}: kernel output differs from its input or the plain version")
         err = max(err, float((y_k - y_r).abs().max()) if x.numel() else 0.0)
         del y_k, y_r
-        ms = _time_ms(lambda: probe_mod.copy(x))
-        plain_ms = _time_ms(lambda: probe_mod.copy_reference(x))
+        ms = time_device_ms(lambda: probe_mod.copy(x))
+        plain_ms = time_device_ms(lambda: probe_mod.copy_reference(x))
         nbytes = 4 * x.numel()
         rec = {"elements": x.numel(), "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": 2 * nbytes / HBM_GB_S / 1e6,
                "gb_s": 2 * nbytes / ms / 1e6, "plain_gb_s": 2 * nbytes / plain_ms / 1e6}
         line = (f"copy {name} ({x.numel()} f32, {nbytes} B): kernel == input == clone bit for "
                 f"bit; kernel {ms:.4f} ms {rec['gb_s']:.1f} GB/s, clone {plain_ms:.4f} ms "
@@ -194,7 +182,10 @@ def copy_sweep(dev):
     torch.cuda.empty_cache()
     probe_x = torch.arange(8 * 128, dtype=torch.float32, device=dev).reshape(8, 128)
     main = sweep["probe_8x128"]
+    # The plain version is itself the one library call (clone).
     return {"max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": "bytes",
+            "library_ms": main["plain_ms"], "library_call": "clone (the plain version)",
             "host_us": _host_us(lambda: probe_mod.copy(probe_x)),
             "plain_host_us": _host_us(lambda: probe_mod.copy_reference(probe_x)),
             "sweep": sweep}
@@ -202,11 +193,8 @@ def copy_sweep(dev):
 
 def kernel_phase(dev):
     rng = np.random.default_rng(0)
-    cases = {
-        "main_path_5120x16384": (*_cloud(rng, 5120), *_cloud(rng, 16384)),
-        "ragged_77x1000": (*_cloud(rng, 77), *_cloud(rng, 1000)),
-        "fewer_valid_than_k": (*_cloud(rng, 300), *_cloud(rng, 64, valid_share=0.05)),
-    }
+    cases = {name: make(rng) for name, make in KNN_CASES.items()}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     max_err = 0.0
     for name, arrays in cases.items():
         args = [torch.tensor(a, device=dev) for a in arrays]
@@ -218,22 +206,38 @@ def kernel_phase(dev):
         fin = torch.isfinite(d_r)
         err = float((d_k[fin] - d_r[fin]).abs().max()) if fin.any() else 0.0
         max_err = max(max_err, err)
+        plan = knn_mod.knn_plan(args[0].shape[0], args[2].shape[0], sms)
         print(f"knn {name}: kernel == plain (idx identical, max |d2 diff| {err}); "
-              f"{int(fin.sum())} of {fin.numel()} slots filled")
-    main = [torch.tensor(a, device=dev) for a in cases["main_path_5120x16384"]]
-    ms = _time_ms(lambda: knn_mod.knn(*main))
-    plain_ms = _time_ms(lambda: knn_mod.knn_reference(*main))
-    print(f"knn 5120x16384 k=5: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms "
-          f"(median of 20, CUDA events)")
+              f"{int(fin.sum())} of {fin.numel()} slots filled; plan {plan}")
+    main = [torch.tensor(a, device=dev) for a in cases["main_path"]]
+    ms = time_device_ms(lambda: knn_mod.knn(*main))
+    plain_ms = time_device_ms(lambda: knn_mod.knn_reference(*main))
+    # Yardstick only, not the same function: the GEMM expansion of the
+    # distances, no masks, two calls; the port never calls it.
+    library_ms = time_device_ms(lambda: torch.topk(torch.cdist(main[0], main[2]), 5,
+                                                   largest=False))
+    clock = gpu_clock_mhz()
+    bound_ms = knn_bound_ms(main[1], main[3], sms, clock)
+    per_tile, cluster, split = knn_mod.knn_plan(main[0].shape[0], main[2].shape[0], sms)
+    blocks = -(-main[0].shape[0] // per_tile) * cluster
+    print(f"knn 5120x16384 k=5: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, "
+          f"topk(cdist) {library_ms:.4f} ms (median of 20, CUDA events); FP32 bound "
+          f"{bound_ms:.4f} ms ({sms} SMs at {clock:.0f} MHz), kernel at "
+          f"{bound_ms / ms:.2f} of it; plan {per_tile} queries x {cluster} blocks, "
+          f"split {split}, {blocks} blocks")
 
     copy_kern = copy_sweep(dev)
     knn_kern = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": "operations", "library_ms": library_ms,
+                "library_call": "torch.topk(torch.cdist(q, p), 5, largest=False): "
+                                "yardstick only, GEMM expansion and no masks",
+                "blocks": blocks, "cluster": cluster,
                 "host_us": _host_us(lambda: knn_mod.knn(*main))}
     print(f"host path per call (enqueue, no sync, median of 5 x 100): knn "
           f"{knn_kern['host_us']:.2f} us, copy 8x128 {copy_kern['host_us']:.2f} us, "
           f"clone 8x128 {copy_kern['plain_host_us']:.2f} us")
 
-    pts, valid = _cloud(rng, 51200)
+    pts, valid = cloud(rng, 51200)
     out_c, v_c = neighbors.voxel_downsample(torch.tensor(pts), torch.tensor(valid),
                                             0.4, 16384, scatter_keys=True)
     out_g, v_g = neighbors.voxel_downsample(torch.tensor(pts, device=dev),

@@ -15,110 +15,373 @@
 //   * missing slots and invalid queries come back as +inf / -1;
 //   * indices are int64.
 //
-// What bounds it: FP32 compare-and-insert work, Q*N*(3 sub + 3 mul + 2 add +
-// compares), not bytes: each map point is 16 bytes and is read once per
-// block. Design: one thread per query, 128 threads a block; map tiles of
-// 1024 points are staged through shared memory as float4 (x, y, z, valid),
-// 16 KB, and each staged tile serves all 128 queries of the block. Each
-// thread keeps its sorted top-k in registers (k is a template parameter, so
-// the insertion network unrolls to constant register indices) and inserts
-// with a strict '<' while scanning map indices in ascending order, which is
-// what sends ties to the lowest index.
+// What bounds it: FP32 issue, not bytes. Q x N pairs at 8 operations each
+// (3 sub, 3 mul, 2 add; no FMA) plus a compare; at 5120 x 16,384 that is
+// ~20 us on 132 SMs x 128 lanes x 1.98 GHz, while the inputs and outputs
+// (under 600 KB, L2-resident) move in under 1 us. What costs beyond that
+// is keeping the top-k: an insertion into a sorted list of k is ~30
+// instructions, and a query meets ~k ln(n / k) of them in a scan of n points.
 //
-// Known limit: at Q = 5120 this launches 40 blocks on 132 SMs. Splitting the
-// map across blocks and merging their top-k lists is the next step.
+// Design. The map may be split between the blocks of a cluster, and each
+// warp scans for two queries at once:
+//   * a tile of kTileQueries = 16 queries (8 warps x kR = 2) is served by a
+//     thread-block cluster of C blocks (C in {1, 2, 4, 8}, the portable
+//     sizes). Block r of the cluster takes the contiguous map split
+//     [r * split, (r + 1) * split), clipped to N. ops/knn.py::knn_plan picks
+//     C and split: every split costs each query a fresh top-k warm-up, so it
+//     takes the fewest splits that give every SM a block (at the window's
+//     5120 x 16,384, C = 1 and 320 tiles; at the odometry's 1024 or 2048
+//     scan points against its 16,384-point map, C = 4 or 2);
+//   * the block stages its split into shared memory as it lies (x, y, z a
+//     point), kTile = 2048 points (24 KB) at a time, with 16-byte loads where
+//     the split starts 16-byte aligned (knn_plan makes splits a multiple of
+//     4 points); then every invalid point's coordinates become +inf. For a
+//     finite query its distance is then +inf, and the strict '<' against the
+//     k-th best distance rejects it, as the plain version's +inf does, so the
+//     scan has no validity test;
+//   * each of the block's 8 warps takes kR = 2 of the tile's queries, and its
+//     32 lanes take 32 consecutive map points a step: a lane reads its point
+//     once (three conflict-free 4-byte shared loads, stride 3) and computes
+//     kR distances. Every lane holds the same sorted top-k of
+//     each query in registers (k is a template parameter, so the insertion
+//     network unrolls to constant register indices). A warp computes kSteps
+//     = 8 steps before it votes: each lane sets one bit a (step, query) whose
+//     distance beats the k-th best, and a warp-wide OR (redux.sync) says
+//     which pairs have candidates. Only those are done again, each query's
+//     in ascending steps: a ballot finds the step's candidates and the warp
+//     inserts them together, the lowest lane first, or, where a step has more
+//     than a few (the first steps of a scan), by k rounds of a warp-wide
+//     lexicographic minimum. Every branch is the same for the whole warp, so
+//     a query meets ~k ln(n / 32) insertion steps in a scan of n points,
+//     where a thread per query would stall its warp on the union of 32
+//     queries' insertions, ~32 k / t at the t-th point;
+//   * the warp keeps each query's list in shared memory between stages; then
+//     cluster.sync(), and block r merges the lists of its 1/C share of the
+//     tile's queries: lane (query, peer block) of warp 0 reads that peer's
+//     list through distributed shared memory (map_shared_rank), and the C
+//     lanes of a query merge pairwise by warp shuffles. A second
+//     cluster.sync() keeps each block's shared memory alive until its peers
+//     have read it.
+//     One launch, no global scratch, no atomics.
+// The grid's y dimension is left free for a batch of independent problems.
+//
+// Why the result is the plain version's, bit for bit, whatever the order in
+// which blocks run: the plain version's output is the first k pairs, in the
+// lexicographic order of (distance, index), among the valid points (its
+// ascending scan with a strict '<' sends ties to the lowest index). Every
+// map index lies in exactly one split, so the first k of the whole map are
+// among the union of each split's first k. Within a split a warp offers the
+// candidates to the list in ascending (distance, index) order within a step
+// and in ascending steps, so the strict '<' insertion keeps each split's
+// first k exactly. The merge compares (distance, index) lexicographically, a
+// total order on distinct indices, so the merged list is the first k of the
+// union, independent of the merge's order. Each distance is computed by the
+// same f32 operations as the plain version.
+//
+// A query with a non-finite coordinate gets d = +inf or NaN for every
+// point and no neighbour (+inf / -1); on the main path such a query is
+// invalid and is masked at the output anyway.
+//
+// What stays out, and why: wgmma (tensor cores compute products, not
+// squared differences); the |q|^2 + |p|^2 - 2 q.p expansion (it cancels at
+// world-scale coordinates, neighbors.py in the JAX package, and would break
+// the bit equality that keeps the replay's association equal to JAX's);
+// TMA (the map is 213 KB and L2-resident; plain 16-byte loads stage it).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stddef.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 1024;
+constexpr int kThreads = 256;        // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kQueriesPerWarp = 2;   // kR: queries a warp scans for at once
+constexpr int kTileQueries = kWarps * kQueriesPerWarp;   // 16 queries a tile
+constexpr int kTile = 2048;          // map points staged at a time
+constexpr int kMaxCluster = 8;
+constexpr int kSteps = 8;            // steps of 32 points computed before a vote
+constexpr int kFewCandidates = 2;    // at most this many: one at a time
+constexpr unsigned kAll = 0xffffffffu;
+static_assert(kSteps * kQueriesPerWarp <= 32 && kSteps < 32, "one candidate bit a (step, query)");
+static_assert(kTileQueries % kMaxCluster == 0 && kTileQueries <= 32, "the merge: one warp");
 
+// The plain version's squared distance: three differences, three products,
+// two sums, in this order (built with --fmad=false: no contraction).
+__device__ __forceinline__ float dist2(float qx, float qy, float qz, float px, float py,
+                                       float pz) {
+  const float dx = qx - px;
+  const float dy = qy - py;
+  const float dz = qz - pz;
+  return (dx * dx + dy * dy) + dz * dz;
+}
+
+// (d, i) comes before (e, j) in the lexicographic order of (distance, index).
+__device__ __forceinline__ bool before(float d, int i, float e, int j) {
+  return d < e || (d == e && i < j);
+}
+
+// Inserts (d, i) into the sorted list (bd, bi) if it comes before the last
+// entry; the entries after its place move down by one and the last drops out.
+// Empty slots hold (+inf, -1), and +inf candidates are never inserted.
+// kScan: i comes after every entry of equal distance in the list, as along
+// an ascending scan, so "before" is d < e alone, one compare a slot.
+template <int K, bool kScan>
+__device__ __forceinline__ void insert(float (&bd)[K], int (&bi)[K], float d, int i) {
+  auto before_ = [&](int s) { return kScan ? d < bd[s] : before(d, i, bd[s], bi[s]); };
+  if (!before_(K - 1)) return;
+#pragma unroll
+  for (int s = K - 1; s >= 0; --s) {
+    const bool moves = before_(s);
+    if (moves && s + 1 < K) {
+      bd[s + 1] = bd[s];
+      bi[s + 1] = bi[s];
+    }
+    if (moves && (s == 0 || !before_(s - 1))) {
+      bd[s] = d;
+      bi[s] = i;
+    }
+  }
+}
+
+// The warp's candidates of one step: lane l (set in `mask`) offers
+// (d, first + l). Every lane holds the same list and gets the same result.
 template <int K>
+__device__ __forceinline__ void insert_step(float (&bd)[K], int (&bi)[K], unsigned mask,
+                                            float d, int first, int lane) {
+  if (__popc(mask) <= kFewCandidates) {
+    // The lowest lane first: ascending index, so ties keep the lower one.
+    for (; mask; mask &= mask - 1) {
+      const int l = __ffs(mask) - 1;
+      const float c = __shfl_sync(kAll, d, l);
+      insert<K, true>(bd, bi, c, first + l);
+    }
+    return;
+  }
+  // Many candidates (the first steps of a scan): the step's k smallest by
+  // (distance, lane), each by a butterfly minimum, in ascending order.
+  float mine = (mask >> lane) & 1 ? d : INFINITY;
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    float v = mine;
+    int l = lane;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float v2 = __shfl_xor_sync(kAll, v, off);
+      const int l2 = __shfl_xor_sync(kAll, l, off);
+      if (before(v2, l2, v, l)) {
+        v = v2;
+        l = l2;
+      }
+    }
+    if (!(v < bd[K - 1])) break;
+    insert<K, true>(bd, bi, v, first + l);
+    if (lane == l) mine = INFINITY;
+  }
+}
+
+// Stages points [0, n) of `src` (n x 3 floats) into `stage` as they lie,
+// with 16-byte loads where `src` is 16-byte aligned, then sets the
+// coordinates of each invalid point to +inf. Ends with a block barrier.
+__device__ __forceinline__ void stage_points(float* stage, const float* __restrict__ src,
+                                             const uint8_t* __restrict__ valid, int n) {
+  const int nf = 3 * n;
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    done = nf / 4 * 4;
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    float4* stage4 = reinterpret_cast<float4*>(stage);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < nf / 4; i += kThreads) stage4[i] = src4[i];
+  }
+  for (int e = done + threadIdx.x; e < nf; e += kThreads) stage[e] = src[e];
+  __syncthreads();
+  for (int t = threadIdx.x; t < n; t += kThreads) {
+    if (!valid[t]) stage[3 * t] = stage[3 * t + 1] = stage[3 * t + 2] = INFINITY;
+  }
+  __syncthreads();
+}
+
+template <int K, int kR>
 __global__ void __launch_bounds__(kThreads)
 knn_kernel(const float* __restrict__ query, const uint8_t* __restrict__ query_valid,
            const float* __restrict__ points, const uint8_t* __restrict__ points_valid,
-           int n_query, int n_points,
+           int n_query, int n_points, int split,
            float* __restrict__ out_d, int64_t* __restrict__ out_i) {
-  __shared__ float4 tile[kTile];
-  const int q = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = q < n_query;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (active) {
-    qx = query[3 * q];
-    qy = query[3 * q + 1];
-    qz = query[3 * q + 2];
-  }
-  float bd[K];
-  int bi[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    bd[s] = INFINITY;
-    bi[s] = -1;
+  __shared__ __align__(16) float stage[3 * kTile];   // point t at [3 t, 3 t + 3)
+  __shared__ float list_d[kTileQueries * K];   // query j's list at [j * K, j * K + K)
+  __shared__ int list_i[kTileQueries * K];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int q0 = (blockIdx.x / csize) * kTileQueries;   // the tile's first query
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int j0 = warp * kR;   // the warp's queries: q0 + j0 + r, r < kR
+
+  for (int e = threadIdx.x; e < kTileQueries * K; e += kThreads) {
+    list_d[e] = INFINITY;
+    list_i[e] = -1;
   }
 
-  for (int base = 0; base < n_points; base += kTile) {
-    const int n = min(kTile, n_points - base);
-    __syncthreads();  // the previous tile is no longer read
-    for (int t = threadIdx.x; t < n; t += kThreads) {
-      const int j = base + t;
-      tile[t] = make_float4(points[3 * j], points[3 * j + 1], points[3 * j + 2],
-                            points_valid[j] ? 1.f : 0.f);
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int t = 0; t < n; ++t) {
-      const float4 p = tile[t];
-      const float dx = qx - p.x;
-      const float dy = qy - p.y;
-      const float dz = qz - p.z;
-      const float d = (dx * dx + dy * dy) + dz * dz;
-      if (p.w == 0.f || !(d < bd[K - 1])) continue;
-      const int idx = base + t;
-      // Insert at the first slot whose distance is strictly greater; the
-      // slots from there on move down by one and the last one drops out.
+  // The block's split [lo, hi); ops/knn.py::knn_splits computes the same.
+  const int lo = min(rank * split, n_points);
+  const int hi = min(lo + split, n_points);
+  for (int base = lo; base < hi; base += kTile) {
+    const int n = min(kTile, hi - base);
+    __syncthreads();   // the previous stage and lists are no longer in use
+    stage_points(stage, points + 3 * static_cast<int64_t>(base), points_valid + base, n);
+
+    float qx[kR], qy[kR], qz[kR];
+    float bd[kR][K];
+    int bi[kR][K];
 #pragma unroll
-      for (int s = K - 1; s >= 0; --s) {
-        const bool moves = d < bd[s];
-        if (moves && s + 1 < K) {
-          bd[s + 1] = bd[s];
-          bi[s + 1] = bi[s];
+    for (int r = 0; r < kR; ++r) {
+      const int q = q0 + j0 + r;
+      const bool active = q < n_query;
+      qx[r] = active ? query[3 * q] : 0.f;
+      qy[r] = active ? query[3 * q + 1] : 0.f;
+      qz[r] = active ? query[3 * q + 2] : 0.f;
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        bd[r][s] = list_d[(j0 + r) * K + s];
+        bi[r][s] = list_i[(j0 + r) * K + s];
+      }
+    }
+    // kSteps steps of 32 points at a time. First only which (step, query)
+    // pairs have a candidate in some lane: bit r * kSteps + u, OR-ed over
+    // the warp. Then those pairs again, each query's in ascending steps,
+    // the distances recomputed (the same operations, so the same bits).
+    for (int t0 = 0; t0 < n; t0 += 32 * kSteps) {
+      unsigned bits = 0;
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        const int t = t0 + 32 * u + lane;
+        const float px = t < n ? stage[3 * t] : INFINITY;
+        const float py = t < n ? stage[3 * t + 1] : INFINITY;
+        const float pz = t < n ? stage[3 * t + 2] : INFINITY;
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          if (dist2(qx[r], qy[r], qz[r], px, py, pz) < bd[r][K - 1]) bits |= 1u << (r * kSteps + u);
         }
-        if (moves && (s == 0 || !(d < bd[s - 1]))) {
-          bd[s] = d;
-          bi[s] = idx;
+      }
+      bits = __reduce_or_sync(kAll, bits);
+      if (bits == 0) continue;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        for (unsigned m = (bits >> (r * kSteps)) & ((1u << kSteps) - 1); m; m &= m - 1) {
+          const int u = __ffs(m) - 1;
+          const int t = t0 + 32 * u + lane;
+          const float px = t < n ? stage[3 * t] : INFINITY;
+          const float py = t < n ? stage[3 * t + 1] : INFINITY;
+          const float pz = t < n ? stage[3 * t + 2] : INFINITY;
+          const float d = dist2(qx[r], qy[r], qz[r], px, py, pz);
+          const unsigned mask = __ballot_sync(kAll, d < bd[r][K - 1]);
+          if (mask) insert_step<K>(bd[r], bi[r], mask, d, base + t0 + 32 * u, lane);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) {
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+#pragma unroll
+        for (int s = 0; s < K; ++s) {
+          list_d[(j0 + r) * K + s] = bd[r][s];
+          list_i[(j0 + r) * K + s] = bi[r][s];
         }
       }
     }
   }
+  cluster.sync();   // every block's lists are written and visible
 
-  if (active) {
-    const bool ok = query_valid[q] != 0;
+  // Block `rank` merges the tile's queries [rank * share, (rank + 1) * share):
+  // lane (jj, peer) of warp 0 reads the peer block's list of query jj, then
+  // the C lanes of the query (neighbouring lanes, C divides 16) merge by
+  // shuffles. Lanes past the tile hold empty lists and write nothing.
+  if (warp == 0) {
+    const int share = kTileQueries / csize;
+    const bool live = lane < kTileQueries;
+    const int peer = lane % csize;
+    const int j = rank * share + (live ? lane / csize : 0);
+    float md[K];
+    int mi[K];
+    const float* peer_d = cluster.map_shared_rank(list_d, peer);
+    const int* peer_i = cluster.map_shared_rank(list_i, peer);
 #pragma unroll
     for (int s = 0; s < K; ++s) {
-      out_d[(int64_t)q * K + s] = ok ? bd[s] : INFINITY;
-      out_i[(int64_t)q * K + s] = ok ? (int64_t)bi[s] : -1;
+      md[s] = live ? peer_d[j * K + s] : INFINITY;
+      mi[s] = live ? peer_i[j * K + s] : -1;
+    }
+    for (int off = 1; off < csize; off <<= 1) {
+      float od[K];
+      int oi[K];
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        od[s] = __shfl_xor_sync(kAll, md[s], off);
+        oi[s] = __shfl_xor_sync(kAll, mi[s], off);
+      }
+#pragma unroll
+      for (int s = 0; s < K; ++s) insert<K, false>(md, mi, od[s], oi[s]);
+    }
+    const int q = q0 + j;
+    if (live && peer == 0 && q < n_query) {
+      const bool ok = query_valid[q] != 0;
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        out_d[static_cast<int64_t>(q) * K + s] = ok ? md[s] : INFINITY;
+        out_i[static_cast<int64_t>(q) * K + s] = ok ? static_cast<int64_t>(mi[s]) : -1;
+      }
     }
   }
+  cluster.sync();   // the peers have read this block's lists before it exits
 }
 
 }  // namespace
 
 // query (Q, 3) f32, query_valid (Q,) bool, points (N, 3) f32, points_valid
 // (N,) bool, all contiguous on one device; out_d (Q, 5) f32 and out_i (Q, 5)
-// int64. Launches on `stream` and returns the cudaError_t of the launch.
-extern "C" int glio_knn5_f32(const void* query, const void* query_valid,
-                             const void* points, const void* points_valid,
-                             int n_query, int n_points,
-                             void* out_d, void* out_i, void* stream) {
-  if (n_query <= 0) return 0;
-  const int blocks = (n_query + kThreads - 1) / kThreads;
-  knn_kernel<5><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(query), static_cast<const uint8_t*>(query_valid),
-      static_cast<const float*>(points), static_cast<const uint8_t*>(points_valid),
-      n_query, n_points, static_cast<float*>(out_d), static_cast<int64_t*>(out_i));
+// int64. (cluster, split) is ops/knn.py::knn_plan's. Launches a grid of
+// ceil(Q / 16) clusters of `cluster` blocks on `stream` and returns the
+// cudaError_t of the launch (0 on success). Coordinates are indexed in int32,
+// so 3 Q and 3 N must fit in it.
+// Every argument is 64 bits wide, which ctypes converts fastest.
+extern "C" int glio_knn5_f32(const void* query, const void* query_valid, const void* points,
+                             const void* points_valid, size_t n_query, size_t n_points,
+                             size_t cluster, size_t split, void* out_d, void* out_i,
+                             void* stream) {
+  if (3 * n_query > INT32_MAX || 3 * n_points > INT32_MAX || cluster < 1 ||
+      cluster > kMaxCluster || (cluster & (cluster - 1)) != 0 || split > n_points ||
+      cluster * split < n_points)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_query == 0) return 0;
+  const size_t tiles = (n_query + kTileQueries - 1) / kTileQueries;
+
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(tiles * cluster), 1, 1);
+  config.blockDim = dim3(kThreads, 1, 1);
+  config.dynamicSmemBytes = 0;
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, knn_kernel<5, kQueriesPerWarp>, static_cast<const float*>(query),
+      static_cast<const uint8_t*>(query_valid), static_cast<const float*>(points),
+      static_cast<const uint8_t*>(points_valid), static_cast<int>(n_query),
+      static_cast<int>(n_points), static_cast<int>(split), static_cast<float*>(out_d),
+      static_cast<int64_t*>(out_i));
+  if (err != cudaSuccess) {
+    cudaGetLastError();   // leave no error behind for the next launch to report
+    return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,6 +4,11 @@
 the Pallas kernel ``glio_tpu.ops.knn_pallas``, a drop-in for it). On a CUDA
 tensor it launches the kernel, or raises; on a CPU tensor it runs
 ``knn_reference``. Nothing falls back from one to the other.
+
+``knn_plan`` sizes the kernel's launch on the host: how many blocks of a
+cluster share each 16-query tile and how the map is split between them
+(``knn_splits`` lists the resulting map ranges). Both are plain integer
+functions, so the CPU tests hold them to cover the map.
 """
 
 import ctypes
@@ -75,11 +80,56 @@ def knn_reference(query, query_valid, points, points_valid, k: int = 5):
     return best_d, best_i
 
 
+# The kernel's shape (csrc/knn.cu: kTileQueries, kMaxCluster).
+TILE_QUERIES = 16                # queries a cluster serves: 8 warps x 2
+CLUSTER_SIZES = (1, 2, 4, 8)     # powers of two up to the portable 8
+
+
+def split_size(n_points: int, cluster: int) -> int:
+    """Points per block when ``cluster`` blocks share ``n_points``: a
+    multiple of 4 when the map is split (unless the map has fewer), so every
+    split starts 16-byte aligned for the kernel's staging loads."""
+    if cluster == 1:
+        return n_points
+    return min(n_points, -(-n_points // (4 * cluster)) * 4)
+
+
+def knn_plan(n_query: int, n_points: int, sm_count: int) -> tuple[int, int, int]:
+    """The kernel's launch: ``(queries_per_block, cluster_size, points_per_split)``.
+
+    Each tile of ``TILE_QUERIES`` queries is served by a cluster of
+    ``cluster_size`` blocks, block r scanning the map points
+    ``[r * points_per_split, (r + 1) * points_per_split)``, clipped to
+    ``n_points``. Every split costs each query a fresh top-k warm-up, so the
+    plan takes the fewest splits that give every SM a block, at most 8
+    (``split_size`` sizes them). Raises ``ValueError`` for sizes the
+    kernel's int32 indexing cannot hold. A plain tuple, as this runs on
+    every launch.
+    """
+    if 3 * n_query >= 2**31 or 3 * n_points >= 2**31:
+        raise ValueError("knn: sizes beyond the kernel's int32 indexing")
+    tiles = -(-n_query // TILE_QUERIES)
+    cluster = next((c for c in CLUSTER_SIZES if tiles * c >= sm_count), CLUSTER_SIZES[-1])
+    return TILE_QUERIES, cluster, split_size(n_points, cluster)
+
+
+def knn_splits(n_points: int, plan: tuple[int, int, int]) -> list[tuple[int, int]]:
+    """The map ranges ``[lo, hi)`` that the blocks of one cluster scan, in
+    rank order; the kernel computes the same bounds. A range may be empty."""
+    _, cluster, split = plan
+    out = []
+    for rank in range(cluster):
+        lo = min(rank * split, n_points)
+        out.append((lo, min(lo + split, n_points)))
+    return out
+
+
 @functools.cache
 def _library():
-    lib = _build.load("knn.cu")
-    fn = lib.glio_knn5_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+    fn = _build.load("knn.cu").glio_knn5_f32
+    # Every argument is a pointer or a size_t, 64 bits on the card's hosts;
+    # ctypes converts a Python int fastest as c_void_p.
+    fn.argtypes = [ctypes.c_void_p] * 11
     fn.restype = ctypes.c_int
     return fn
 
@@ -100,14 +150,14 @@ def knn(query, query_valid, points, points_valid, k: int = 5):
     if k != K_SUPPORTED:
         raise ValueError(f"knn: the CUDA kernel is built for k={K_SUPPORTED}, got k={k}")
     Q, N = query.shape[0], points.shape[0]
-    if Q >= 2**31 or 3 * N >= 2**31:
-        raise ValueError("knn: sizes beyond the kernel's int32 indexing")
+    index = query.get_device()
+    _, cluster, split = knn_plan(Q, N, _launch.sm_count(index))
     dev = query.device
     out_d = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int64, device=dev)
-    _launch.launch("knn", _library(), query.get_device(), query.data_ptr(),
-                   query_valid.data_ptr(), points.data_ptr(), points_valid.data_ptr(),
-                   Q, N, out_d.data_ptr(), out_i.data_ptr())
+    _launch.launch("knn", _library(), index, query.data_ptr(), query_valid.data_ptr(),
+                   points.data_ptr(), points_valid.data_ptr(), Q, N, cluster, split,
+                   out_d.data_ptr(), out_i.data_ptr())
     knn.launches += 1
     return out_d, out_i
 

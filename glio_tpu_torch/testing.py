@@ -1,0 +1,100 @@
+"""Inputs and timing shared by the port's checks on the card.
+
+``chip_smoke.py``, ``tests/test_torch_cuda.py`` and
+``scripts/bench_torch_knn.py`` draw their 5-NN inputs from here and time
+kernels with ``time_device_ms``, so the three agree on what a case and a
+time are. Nothing on an estimation path imports this module.
+"""
+
+import statistics
+import subprocess
+
+import numpy as np
+import torch
+
+F32 = np.float32
+
+
+def cloud(rng, n, valid_share=0.9, spread=40.0):
+    """``n`` points uniform in a cube of half-width ``spread`` m centred
+    ~300 m from the origin, where the f32 expansion of the distance cancels,
+    and a validity mask with ``valid_share`` of them valid."""
+    pts = (rng.uniform(-spread, spread, size=(n, 3)) + [300.0, -80.0, 2.0]).astype(F32)
+    return pts, rng.uniform(size=n) < valid_share
+
+
+def lattice(rng, n, valid_share=0.9):
+    """Points on the integer lattice of a 9 m cube ~300 m out: every query
+    of the same lattice has ~n / 729 neighbours at exactly the same
+    distance, spread over every split of the map."""
+    pts = (rng.integers(-4, 5, size=(n, 3)) + [300, -80, 2]).astype(F32)
+    return pts, rng.uniform(size=n) < valid_share
+
+
+def halves_copied(rng, n):
+    """A cloud whose second half repeats its first: each point has a twin
+    exactly n / 2 indices on, in another block of the kernel's cluster."""
+    pts, valid = cloud(rng, n // 2)
+    return np.concatenate([pts, pts]), np.concatenate([valid, valid])
+
+
+# name: rng -> (query, query_valid, points, points_valid). The cluster sizes
+# are knn_plan's on a 132-SM H100.
+KNN_CASES = {
+    # The window association: 5 x 1024 queries, 16,384 map points (1 block).
+    "main_path": lambda r: (*cloud(r, 5120), *cloud(r, 16384)),
+    # The odometry's ICP: a 1024- or 2048-point scan against its map (4, 2).
+    "odometry_1024x16384": lambda r: (*cloud(r, 1024), *cloud(r, 16384)),
+    "odometry_2048x16384": lambda r: (*cloud(r, 2048), *cloud(r, 16384)),
+    "ragged": lambda r: (*cloud(r, 77), *cloud(r, 1000)),
+    "fewer_valid_than_k": lambda r: (*cloud(r, 300), *cloud(r, 64, valid_share=0.05)),
+    "empty_map": lambda r: (*cloud(r, 50), *cloud(r, 0)),
+    "ties": lambda r: (np.zeros((3, 3), F32), np.ones(3, bool),
+                       np.repeat(np.eye(3, dtype=F32), 4, axis=0), np.ones(12, bool)),
+    # Exact ties and twins across 8 and 2 splits.
+    "ties_across_splits": lambda r: (*lattice(r, 300), *lattice(r, 16384)),
+    "twins_across_splits": lambda r: (*cloud(r, 2000), *halves_copied(r, 16384)),
+    # Maps of 300 and 3 points split 8 ways; 16,381 points split 4 ways.
+    "map_below_one_split": lambda r: (*cloud(r, 500), *cloud(r, 300)),
+    "map_below_4_points": lambda r: (*cloud(r, 100), *cloud(r, 3, valid_share=1.0)),
+    "map_not_multiple_of_split": lambda r: (*cloud(r, 1000), *cloud(r, 16381)),
+    # Query counts that end in a part-filled 16-query tile.
+    "queries_ragged_5119": lambda r: (*cloud(r, 5119), *cloud(r, 16384)),
+    "queries_ragged_17000": lambda r: (*cloud(r, 17000), *cloud(r, 16384)),
+    "all_map_points_invalid": lambda r: (*cloud(r, 1000), *cloud(r, 4096, valid_share=0.0)),
+}
+
+
+def time_device_ms(fn, reps=20):
+    """Median of ``reps`` single calls of ``fn``, in ms, by CUDA events,
+    after one warm-up. Each call is queued behind a ~50 us device sleep, so
+    the start event fires only once the host has enqueued the call, and the
+    host's path to the launch is not counted."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def gpu_clock_mhz():
+    """The card's maximum SM clock, MHz (``nvidia-smi``)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.split()[0])
+
+
+def knn_bound_ms(query_valid, points_valid, sms, clock_mhz):
+    """Least time for the 5-NN's distances on this card: the valid pairs
+    at 8 FP32 operations each (3 sub, 3 mul, 2 add; no FMA), one per lane
+    per cycle on sms x 128 lanes; bytes (< 1 MB) are far below it."""
+    pairs = int(query_valid.sum()) * int(points_valid.sum())
+    return 8 * pairs / (sms * 128 * clock_mhz * 1e6) * 1e3

@@ -23,6 +23,7 @@ from glio_tpu_torch.models.sliding_window import SlidingWindowEstimator
 from glio_tpu_torch.ops import knn as knn_mod
 from glio_tpu_torch.ops import probe
 from glio_tpu_torch.solver import banded
+from glio_tpu_torch.testing import KNN_CASES, cloud
 
 pytestmark = pytest.mark.cuda
 F32 = np.float32
@@ -35,25 +36,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _cloud(rng, n, offset=(300.0, -80.0, 2.0), spread=40.0, valid_share=0.9):
-    pts = (rng.uniform(-spread, spread, size=(n, 3)) + offset).astype(F32)
-    return pts, rng.uniform(size=n) < valid_share
-
-
-CASES = {
-    # The window association's shape: 5 x 1024 queries, 16,384 map points.
-    "main_path": lambda r: (*_cloud(r, 5120), *_cloud(r, 16384)),
-    "ragged": lambda r: (*_cloud(r, 77), *_cloud(r, 1000)),
-    "fewer_valid_than_k": lambda r: (*_cloud(r, 300), *_cloud(r, 64, valid_share=0.05)),
-    "empty_map": lambda r: (*_cloud(r, 50), *_cloud(r, 0)),
-    "ties": lambda r: (np.zeros((3, 3), F32), np.ones(3, bool),
-                       np.repeat(np.eye(3, dtype=F32), 4, axis=0), np.ones(12, bool)),
-}
-
-
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(KNN_CASES))
 def test_kernel_equals_plain_version(cuda, case):
-    args = [torch.tensor(a, device=cuda) for a in CASES[case](np.random.default_rng(0))]
+    args = [torch.tensor(a, device=cuda) for a in KNN_CASES[case](np.random.default_rng(0))]
     before = knn_mod.knn.launches
     d_k, i_k = knn_mod.knn(*args)
     d_r, i_r = knn_mod.knn_reference(*args)
@@ -64,13 +49,13 @@ def test_kernel_equals_plain_version(cuda, case):
 
 
 def test_kernel_rejects_other_k(cuda):
-    args = [torch.tensor(a, device=cuda) for a in CASES["ragged"](np.random.default_rng(0))]
+    args = [torch.tensor(a, device=cuda) for a in KNN_CASES["ragged"](np.random.default_rng(0))]
     with pytest.raises(ValueError):
         knn_mod.knn(*args, k=3)
 
 
 def test_voxel_downsample_equals_cpu(cuda):
-    pts, valid = _cloud(np.random.default_rng(1), 51200, spread=60.0)
+    pts, valid = cloud(np.random.default_rng(1), 51200, spread=60.0)
     out_c, v_c = neighbors.voxel_downsample(torch.tensor(pts), torch.tensor(valid),
                                             0.4, 16384, scatter_keys=True)
     out_g, v_g = neighbors.voxel_downsample(torch.tensor(pts, device=cuda),
@@ -135,7 +120,7 @@ def test_copy_kernel_equals_plain_version(cuda, case):
 def test_knn_launches_on_the_current_stream(cuda):
     """The inputs are written on a side stream after a sleep; a launch on any
     other stream would read them before they are written."""
-    src = [torch.tensor(a, device=cuda) for a in CASES["main_path"](np.random.default_rng(0))]
+    src = [torch.tensor(a, device=cuda) for a in KNN_CASES["main_path"](np.random.default_rng(0))]
     d_r, i_r = knn_mod.knn_reference(*src)
     args = [torch.zeros_like(a) for a in src]
     torch.cuda.synchronize()

@@ -11,6 +11,11 @@ and at world-scale coordinates that error reorders near neighbours
 (neighbors.py:25-27): the 300 m window case is held against
 ``neighbors.knn`` only.
 
+The kernel splits the map between the blocks of a cluster (``knn_plan``,
+``knn_splits``) and merges the partial top-k lists by (distance, index). Its arithmetic runs only on the card, but the split and
+the merge do not need it: ``knn_reference`` on each split, merged so, must
+equal ``knn_reference`` on the whole map bit for bit.
+
 The CUDA kernel itself is tested on the card by ``test_torch_cuda.py``.
 """
 
@@ -142,3 +147,119 @@ def test_cpu_path_does_not_count_launches():
              torch.ones((8, 3)), torch.ones(8, dtype=torch.bool))
     assert tknn.knn.launches == before
 
+
+
+PLAN_SHAPES = {   # name: (queries, map points, SMs)
+    "main_path": (5120, 16384, 132),
+    "sms1_pair": (1024, 1024, 132),
+    "odometry_bench_scan": (1024, 16384, 132),        # lidar_odometry.py: MAP_DS
+    "odometry_production_scan": (2048, 16384, 132),
+    "empty_map": (5120, 0, 132),
+    "map_below_cluster_size": (100, 5, 132),
+    "map_below_4_points": (100, 3, 132),
+    "ragged_both": (5119, 16381, 132),
+    "one_query": (1, 777, 132),
+    "few_sms": (300, 3000, 8),
+    "large_queries": (17000, 16384, 132),
+}
+
+
+@pytest.mark.parametrize("shape", list(PLAN_SHAPES))
+def test_knn_plan_covers_the_map_once(shape):
+    Q, N, sms = PLAN_SHAPES[shape]
+    plan = tknn.knn_plan(Q, N, sms)
+    per_tile, cluster, split = plan
+    assert per_tile == tknn.TILE_QUERIES and per_tile % cluster == 0
+    assert cluster in tknn.CLUSTER_SIZES and split >= 0
+    assert split <= N and cluster * split >= N
+    ranges = tknn.knn_splits(N, plan)
+    assert len(ranges) == cluster
+    covered = np.concatenate([np.arange(lo, hi) for lo, hi in ranges] + [np.zeros(0, int)])
+    np.testing.assert_array_equal(covered, np.arange(N))    # ascending, contiguous, once
+    assert all(lo <= hi for lo, hi in ranges)
+    assert all(hi - lo == split for lo, hi in ranges if hi < N)   # only the tail is short
+    if cluster > 1 and split < N:     # every split starts 16-byte aligned
+        assert split % 4 == 0
+    tiles = -(-Q // per_tile)
+    # The fewest splits that give every SM a block, at most 8.
+    assert tiles * cluster >= sms or cluster == 8
+    assert cluster == 1 or tiles * cluster // 2 < sms
+    expected = {"main_path": 1, "odometry_bench_scan": 4, "odometry_production_scan": 2,
+                "sms1_pair": 4}
+    if shape in expected:
+        assert cluster == expected[shape]
+
+
+@pytest.mark.parametrize("sizes", [(2**31 // 3 + 1, 16), (16, 2**31 // 3 + 1)])
+def test_knn_plan_rejects_sizes_beyond_int32_indexing(sizes):
+    """The kernel indexes coordinates (3 per point) in int32; the wrapper
+    plans every launch, so this is its check."""
+    with pytest.raises(ValueError):
+        tknn.knn_plan(*sizes, 132)
+    assert tknn.knn_plan(2**31 // 3, 2**31 // 3, 132)[1] == 1
+
+
+def _merge(lists, k=5):
+    """The kernel's merge: the first k of the union by (distance, index)."""
+    d = torch.cat([a for a, _ in lists], dim=1)
+    i = torch.cat([b for _, b in lists], dim=1)
+    key_i = torch.where(i < 0, torch.iinfo(torch.int64).max, i)
+    order = np.lexsort((key_i.numpy(), d.numpy()), axis=1)[:, :k]
+    order = torch.from_numpy(order)
+    return torch.gather(d, 1, order), torch.gather(i, 1, order)
+
+
+def _split_merge(q, qv, p, pv, plan):
+    lists = []
+    for lo, hi in tknn.knn_splits(p.shape[0], plan):
+        d, i = tknn.knn_reference(q, qv, p[lo:hi], pv[lo:hi])
+        lists.append((d, torch.where(i >= 0, i + lo, i)))
+    return _merge(lists)
+
+
+def _lattice(rng, n):
+    return (rng.integers(-2, 3, size=(n, 3)) + [300, -80, 2]).astype(F32)
+
+
+SPLIT_CASES = {   # name: rng -> (q, qv, p, pv); ties are exact wherever named
+    "cloud": lambda r: (_lattice(r, 40) + r.normal(size=(40, 3)).astype(F32),
+                        r.uniform(size=40) < 0.9, _lattice(r, 3000) + r.normal(
+                            size=(3000, 3)).astype(F32), r.uniform(size=3000) < 0.9),
+    "lattice_ties_everywhere": lambda r: (_lattice(r, 60), np.ones(60, bool), _lattice(r, 3000),
+                                          r.uniform(size=3000) < 0.8),
+    "twin_in_the_next_split": lambda r: (lambda c: (c[:50], np.ones(50, bool),
+                                                    np.concatenate([c, c]),
+                                                    np.ones(2 * len(c), bool)))(
+        _lattice(r, 1500) + r.normal(size=(1500, 3)).astype(F32)),
+    "equal_distances_straddle_a_boundary": lambda r: _straddle(),
+    "all_invalid": lambda r: (_lattice(r, 20), np.ones(20, bool), _lattice(r, 700),
+                              np.zeros(700, bool)),
+    "map_below_k": lambda r: (_lattice(r, 20), np.ones(20, bool), _lattice(r, 3),
+                              np.ones(3, bool)),
+}
+
+
+def _straddle():
+    """Points at distance 1 from the origin query on both sides of every
+    multiple of 128 in a 1024-point map: each split boundary of 2, 4 or 8
+    splits."""
+    p = np.full((1024, 3), 50.0, F32)
+    units = np.concatenate([np.eye(3), -np.eye(3)]).astype(F32)
+    for b in range(128, 1024, 128):
+        p[b - 2:b + 2] = units[(b // 128) % 6]
+    return np.zeros((3, 3), F32), np.ones(3, bool), p, np.ones(1024, bool)
+
+
+@pytest.mark.parametrize("cluster", ["plan", 2, 8])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_and_merge_equals_whole_map(case, cluster):
+    q, qv, p, pv = (torch.tensor(a) for a in SPLIT_CASES[case](np.random.default_rng(0)))
+    N = p.shape[0]
+    plan = tknn.knn_plan(q.shape[0], N, 132)
+    if cluster != "plan":
+        plan = (plan[0], cluster, -(-N // cluster))
+    d_m, i_m = _split_merge(q, qv, p, pv, plan)
+    d_r, i_r = tknn.knn_reference(q, qv, p, pv)
+    assert torch.equal(i_m, i_r) and torch.equal(d_m, d_r)
+    if case == "equal_distances_straddle_a_boundary":
+        assert d_r[0].tolist() == [1.0] * 5 and i_r[0].tolist() == [126, 127, 128, 129, 254]
