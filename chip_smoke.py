@@ -4,8 +4,9 @@
 
 Drives ``glio_tpu_torch``'s paths on ``cuda:0`` at full size and checks
 them: the sliding-window replay at the ``bench.py`` shapes, the toolchain
-probe, the batch stage at the UrbanNav Whampoa length, and ``run_pipeline``
-(stage 1 then stage 2). Phases, each of which raises on failure:
+probe, the batch stage at the UrbanNav Whampoa length, levels 0 and 1, and
+``run_pipeline`` (stage 1 then stage 2, at each level). Phases, each of
+which raises on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``); CUDA must be
    available, there is no CPU mode; TF32 off;
@@ -57,7 +58,42 @@ probe, the batch stage at the UrbanNav Whampoa length, and ``run_pipeline``
    keyframe (``tests/data/pipeline_seed0.npz``): the kNN kernel must
    launch once per keyframe, n_lidar_factors must equal JAX's at every
    step, and ``tc_sw_result.csv`` / ``tc_batch_result.csv`` must match
-   JAX's rows (positions within the replay's 5e-3 m).
+   JAX's rows (positions within the replay's 5e-3 m);
+8. batch level 1: ``simulate_episode(n_keyframes=3493, scan_points=1024,
+   seed=4)`` with simulated GNSS every third keyframe and a random-walk
+   odometry (``tests/data/sms1_T3493_seed4.npz``, made by
+   ``scripts/make_torch_sms1_fixture.py``): the batched 5-NN
+   (``knn_pairs``) against its plain version on 256 of the episode's
+   keyframe pairs; then the main path, ``build_sms1`` (20,937 pairs of
+   1024 x 1024 in chunks of ``SMS1_CHUNK``, one kernel launch each),
+   ``build_imu_chain`` and ``optimize_batch_sms1_imu`` (4 stages x 6 LM
+   iterations over 15-dof states) twice: the two solves must agree bit for
+   bit, the association's masks must agree with JAX's in 99.9 % of the
+   slots (how many slots hold another point than JAX's is printed), p must
+   be within 10x JAX's own spread of JAX's f64 solve (a +-1e-9 m nudge of
+   the odometry, associated and solved again, moves JAX's result by
+   ``nudge_dp``), and p, q and v within 10x that spread of each
+   (``nudge_dq``, ``nudge_dv``) of JAX with its plane fits' eigensystem in
+   f64, as the port has it (``*_f64eig``); RMSE against the truth of the
+   odometry, level 0 and level 1; the
+   association's, the IMU chain's and each LM part's times, each closed by
+   a sync; the batched kernel's time over all pairs in one launch beside
+   its FP32 bound, and over one chunk (kernel == plain bit for bit) beside
+   its plain version and batched ``topk(cdist)``;
+9. pipeline, level 1: phase 7 with ``sms_fusion_level=1``
+   (``tests/data/pipeline_sms1_seed0.npz``), the batch's positions and
+   yaw/pitch/roll held to JAX's f64 level-1 rows within this run's
+   stage-1 difference times the gains by which JAX's level-1 batch grows a
+   stage-1 difference (``gain_p_per_m``, ``gain_ypr_per_m``), plus 10x JAX's
+   own spread under a +-1e-9 m nudge of stage 1 (``nudge_dp``,
+   ``nudge_ypr``); against JAX's mixed rows within that plus 10x JAX's
+   mixed-vs-f64 distance.
+
+The batched 5-NN is also held to its plain version in phase 3, on
+``glio_tpu_torch.testing.KNN_PAIR_CASES``, one launch each: an
+all-invalid map frame, ragged and unaligned frames of 1000 and 1001
+points, one and two pairs (where ``knn_plan`` splits the map), and the
+65,535 pairs that fill the grid's y dimension, the most a call takes.
 
 The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -72,13 +108,14 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
 
 from glio_tpu_torch.config import EstimatorConfig, GlioConfig, ShapeConfig
-from glio_tpu_torch.data.simulator import (drifted_trajectory, simulate_episode,
-                                           simulate_gnss_epochs)
+from glio_tpu_torch.data.simulator import (drifted_trajectory, random_walk_odometry,
+                                           simulate_episode, simulate_gnss_epochs)
 from glio_tpu_torch.lidar import neighbors
 from glio_tpu_torch.models import batch as batch_mod
 from glio_tpu_torch.models.sliding_window import SlidingWindowEstimator
@@ -87,12 +124,16 @@ from glio_tpu_torch.ops import knn as knn_mod
 from glio_tpu_torch.ops import probe as probe_mod
 from glio_tpu_torch.pipeline import run_pipeline
 from glio_tpu_torch.solver import banded
-from glio_tpu_torch.testing import KNN_CASES, cloud, gpu_clock_mhz, knn_bound_ms, time_device_ms
+from glio_tpu_torch.testing import (KNN_CASES, KNN_PAIR_CASES, cloud, gpu_clock_mhz,
+                                    knn_bound_ms, knn_pairs_bound_ms, time_device_ms)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "data", "sw_replay_w50_seed0.npz")
 BATCH_FIXTURE = os.path.join(ROOT, "tests", "data", "batch_T3493_seed4.npz")
 PIPE_FIXTURE = os.path.join(ROOT, "tests", "data", "pipeline_seed0.npz")
+SMS1_FIXTURE = os.path.join(ROOT, "tests", "data", "sms1_T3493_seed4.npz")
+PIPE_SMS1_FIXTURE = os.path.join(ROOT, "tests", "data", "pipeline_sms1_seed0.npz")
+SMS1_MASK_AGREE = 0.999       # share of association slots whose mask equals JAX's
 N_KEYFRAMES = 30
 P_TOL_M = 5e-3
 BATCH_F64_TOL_M = 3e-4        # 10x JAX f64's own spread under a 1e-9 m nudge
@@ -237,6 +278,8 @@ def kernel_phase(dev):
           f"{knn_kern['host_us']:.2f} us, copy 8x128 {copy_kern['host_us']:.2f} us, "
           f"clone 8x128 {copy_kern['plain_host_us']:.2f} us")
 
+    knn_kern["max_abs_err_pairs"] = knn_pair_cases(dev)
+
     pts, valid = cloud(rng, 51200)
     out_c, v_c = neighbors.voxel_downsample(torch.tensor(pts), torch.tensor(valid),
                                             0.4, 16384, scatter_keys=True)
@@ -247,6 +290,32 @@ def kernel_phase(dev):
           "voxel_downsample differs between the card and the CPU")
     print(f"voxel_downsample 51200 -> 16384: card == CPU ({int(v_c.sum())} kept)")
     return knn_kern, copy_kern
+
+
+def knn_pair_cases(dev):
+    """The batched 5-NN entry against its plain version, bit for bit, on
+    ``KNN_PAIR_CASES``, one launch each; returns the largest |d2|
+    difference (0)."""
+    rng = np.random.default_rng(1)
+    max_err = 0.0
+    for name, make in KNN_PAIR_CASES.items():
+        world, valid, i_idx, j_idx = make(rng)
+        args = [torch.tensor(a, device=dev) for a in (world, valid, i_idx, j_idx)]
+        before = knn_mod.knn_pairs.launches
+        d_k, i_k = knn_mod.knn_pairs(*args)
+        launched = knn_mod.knn_pairs.launches - before
+        d_r, i_r = knn_mod.knn_pairs_reference(*args)
+        torch.cuda.synchronize()
+        check(launched == 1, f"knn_pairs {name}: {launched} launches, not 1")
+        check(torch.equal(i_k, i_r), f"knn_pairs {name}: kernel and plain indices differ")
+        check(torch.equal(d_k, d_r), f"knn_pairs {name}: kernel and plain distances differ")
+        fin = torch.isfinite(d_r)
+        err = float((d_k[fin] - d_r[fin]).abs().max()) if fin.any() else 0.0
+        max_err = max(max_err, err)
+        print(f"knn_pairs {name} ({len(i_idx)} pairs of {world.shape[1]} x {world.shape[1]}): "
+              f"kernel == plain ({int(fin.sum())} of {fin.numel()} slots filled); "
+              f"{launched} launches")
+    return max_err
 
 
 def bench_config():
@@ -312,21 +381,29 @@ def probe_phase():
     return launches
 
 
-def _problem_checksums(prob):
+def _checksums(*arrays):
+    """(n, 2): sum and sum of squares of each array or tensor, f64."""
     out = []
-    for a in (prob.p_odo, prob.psr_rov, prob.whiten, prob.ep_valid):
-        a = a.cpu().numpy().astype(np.float64)
+    for a in arrays:
+        a = (a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)).astype(np.float64)
         out.append([a.sum(), (a * a).sum()])
     return np.array(out)
 
 
+def _ypr_diff(a, b):
+    """Largest |a - b| of two yaw/pitch/roll arrays, in degrees, across ±180."""
+    return float(np.abs((a - b + 180.0) % 360.0 - 180.0).max())
+
+
 def _sync_s(fn, reps=1):
-    """Mean seconds of ``reps`` calls, each closed by a device sync."""
-    torch.cuda.synchronize()
+    """Mean seconds of ``reps`` calls, each closed by a device sync (none
+    where no card is present, as in ``scripts/rehearse_torch_sms1.py``)."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
     t0 = time.perf_counter()
     for _ in range(reps):
         out = fn()
-    torch.cuda.synchronize()
+    sync()
     return (time.perf_counter() - t0) / reps, out
 
 
@@ -353,7 +430,7 @@ def batch_problem(dev):
 def batch_phase(dev):
     fx, sc, cfg, prob, p_true, p_odo, (sim_s, build_s) = batch_problem(dev)
     T = sc["n_keyframes"]
-    sums = _problem_checksums(prob)
+    sums = _checksums(prob.p_odo, prob.psr_rov, prob.whiten, prob.ep_valid)
     check(np.allclose(sums, fx["checksums"], rtol=1e-12, atol=0),
           f"the port's problem is not the fixture's: checksums {sums.tolist()} "
           f"!= {fx['checksums'].tolist()}")
@@ -426,10 +503,235 @@ def batch_phase(dev):
           f"JAX: diag {dcov:.3e}, calibrated std {dstd:.3e} (max rel)")
 
 
-def pipeline_phase(dev):
-    fx = np.load(PIPE_FIXTURE)
+def sms1_config(base):
+    return base.replace(estimator=dataclasses.replace(base.estimator, sms_fusion_level=1))
+
+
+def _rmse(p, p_true):
+    p = p.cpu().numpy() if isinstance(p, torch.Tensor) else p
+    return float(np.sqrt(np.mean(np.sum((p - p_true) ** 2, -1))))
+
+
+def sms1_scenario(dev):
+    """The level-1 fixture's scenario, simulated and built by the port on
+    ``dev`` and held to the fixture's checksums: a namespace of the fixture
+    ``fx``, its scenario ``sc``, ``cfg``, the episode ``ep``, the odometry
+    ``p_odo``, ``q_odo``, the problem ``prob`` and the host seconds
+    ``sim_s``, ``build_s``."""
+    fx = np.load(SMS1_FIXTURE)
     sc = json.loads(str(fx["scenario_json"]))
-    cfg = bench_config()
+    cfg = sms1_config(GlioConfig())
+    check(json.loads(str(fx["config_json"])) == json.loads(json.dumps(dataclasses.asdict(cfg))),
+          "the level-1 fixture was made with another configuration")
+    anchor = np.asarray(cfg.initialization.anc_ecef)
+    station = np.asarray(cfg.initialization.station_ecef)
+    t0 = time.perf_counter()
+    ep = simulate_episode(n_keyframes=sc["n_keyframes"], scan_points=sc["scan_points"],
+                          seed=sc["seed"])
+    gnss = simulate_gnss_epochs(ep.gt_p, ep.kf_time, anchor, station, psr_noise=sc["psr_noise"],
+                                epoch_stride=sc["epoch_stride"], seed=sc["seed"])
+    p_odo = random_walk_odometry(ep.gt_p, sc["seed"], sc["drift_step"], sc["odo_noise"])
+    q_odo = ep.gt_q
+    sim_s = time.perf_counter() - t0
+    sums = _checksums(ep.scan, ep.scan_valid, ep.imu_acc, ep.imu_gyr, ep.imu_dt, ep.gt_p,
+                      ep.gt_q, ep.gt_v)
+    check(np.allclose(sums, fx["episode_checksums"], rtol=1e-12, atol=0),
+          "the port's episode is not the fixture's")
+    build_s, prob = _sync_s(lambda: batch_mod.build_problem(
+        cfg, p_odo, q_odo, ep.kf_time, gnss, anchor, 0.0, station, device=dev))
+    sums = _checksums(prob.p_odo, prob.psr_rov, prob.whiten, prob.ep_valid, prob.rel_dq)
+    check(np.allclose(sums, fx["problem_checksums"], rtol=1e-12, atol=0),
+          "the port's level-1 problem is not the fixture's")
+    return types.SimpleNamespace(fx=fx, sc=sc, cfg=cfg, ep=ep, p_odo=p_odo, q_odo=q_odo,
+                                 prob=prob, sim_s=sim_s, build_s=build_s)
+
+
+def sms1_against_jax(s, sms, chain, out, dev):
+    """The port's level-1 association ``sms`` and solve ``out`` (p, q, v,
+    ...) on scenario ``s`` against the fixture's JAX results; raises where a
+    gate fails. Returns the readings."""
+    fx, sc, cfg, ep = s.fx, s.sc, s.cfg, s.ep
+    T = sc["n_keyframes"]
+    p, q, v = out[:3]
+    # The association: masks, and the point each slot holds.
+    mask = sms.mask.cpu().numpy()
+    mask_j = np.unpackbits(fx["mask_bits"])[:mask.size].reshape(mask.shape).astype(bool)
+    agree = float((mask == mask_j).mean())
+    count_eq = float((mask.sum(-1) == fx["mask_count"]).mean())
+    score_sum = torch.where(sms.mask, sms.score, torch.zeros_like(sms.score)).sum(-1).cpu().numpy()
+    dscore = float(np.abs(score_sum - fx["score_sum"]).max())
+    per_r, per_r_j = mask.sum((0, 2)), mask_j.sum((0, 2))
+    sel_j = torch.as_tensor(fx["sel_idx"].astype(np.int64), device=dev)
+    mask_jt = torch.as_tensor(mask_j, device=dev)
+    scans = torch.as_tensor(ep.scan, device=dev)
+    frame = torch.arange(T, device=dev)[:, None, None]
+    pts_j = scans[frame, torch.where(mask_jt, sel_j, torch.zeros_like(sel_j))].to(torch.float64)
+    other = int(((sms.pts_i != pts_j).any(-1) & mask_jt & sms.mask).sum())
+    print(f"level-1 association: {int(mask.sum())} slots (JAX {int(mask_j.sum())}; per offset "
+          f"{per_r.tolist()} against {per_r_j.tolist()}); masks agree in {100 * agree:.4f} % of "
+          f"{mask.size} slots (JAX's own +-1e-9 m nudge changes {int(fx['nudge_mask_differ'])}), "
+          f"counts per (keyframe, offset) in {100 * count_eq:.3f} %; {other} slots "
+          f"({100 * other / max(int(mask_j.sum()), 1):.3f} %) hold another point than JAX's "
+          f"(JAX's own +-1e-9 m nudge: {int(fx['nudge_sel_differ'])}; JAX with its eigensystem "
+          f"in f64: {int(fx['f64eig_sel_differ'])}); max |score sum - JAX's| per (keyframe, "
+          f"offset) {dscore:.3e}")
+    check(agree >= SMS1_MASK_AGREE, f"only {agree} of the slots' masks agree with JAX's")
+    readings = {"masks_agree": agree, "other_point_slots": other, "dscore": dscore}
+    # The solve. JAX's own result moves ~0.1 m under any f32-scale change of
+    # the planarities, through the top-25 selection's near-ties: with its
+    # eigensystem in f64, as the port evaluates it, JAX gives ~13.5 k slots
+    # another point and lands p_f64eig. So p is held to JAX's f64 solve
+    # within 10x JAX's own spread under a +-1e-9 m nudge of the odometry
+    # (associated and solved again), and p, q and v to JAX with the port's
+    # eigensystem within 10x that spread of each.
+    report = []
+    for key, i, ref in (("p", 0, "f64"), ("p", 0, "f64eig"), ("q", 1, "f64eig"),
+                        ("v", 2, "f64eig"), ("q", 1, "f64"), ("v", 2, "f64"), ("p", 0, "mixed")):
+        d = float(np.abs(out[i].cpu().numpy() - fx[f"{key}_{ref}"]).max())
+        readings[f"d{key}_{ref}"] = d
+        if ref == "f64eig" or (key, ref) == ("p", "f64"):
+            tol = 10.0 * float(fx[f"nudge_d{key}"])
+            check(d <= tol, f"level 1: max |{key} - JAX {ref}| = {d} > {tol}")
+            report.append(f"{key} vs JAX {ref} {d:.3e} (tol {tol:.3e})")
+        else:
+            report.append(f"{key} vs JAX {ref} {d:.3e}")
+    moved = ", ".join(f"{k} {np.abs(fx[k + '_f64eig'] - fx[k + '_f64']).max():.3e}" for k in "pqv")
+    print("level 1, max |d|: " + ", ".join(report) + f"; tol = 10x JAX's own spread under a "
+          f"+-1e-9 m nudge; JAX with its eigensystem in f64 moves {moved} from JAX f64")
+    return readings
+
+
+def sms1_phase(dev):
+    """Batch level 1 at the Whampoa length on the card, against
+    ``tests/data/sms1_T3493_seed4.npz``. Returns the knn5_pairs_f32 record."""
+    s = sms1_scenario(dev)
+    fx, sc, cfg, ep, p_odo, q_odo, prob = s.fx, s.sc, s.cfg, s.ep, s.p_odo, s.q_odo, s.prob
+    T, R = sc["n_keyframes"], cfg.estimator.search_range
+    print(f"level-1 episode T={T}, {sc['scan_points']} points a scan "
+          f"({100 * float(ep.scan_valid.mean()):.2f} % valid), {int(prob.ep_valid.sum())} GNSS "
+          f"epochs bound; episode and problem checksums equal to the fixture's; simulate "
+          f"{s.sim_s:.2f} s, build_problem {s.build_s:.2f} s (host)")
+
+    # The batched kernel on 256 of this episode's keyframe pairs, every offset.
+    world = batch_mod.world_points(torch.as_tensor(ep.scan, device=dev),
+                                   torch.as_tensor(p_odo, device=dev),
+                                   torch.as_tensor(q_odo, device=dev))
+    valid = torch.as_tensor(ep.scan_valid, device=dev)
+    i_all, j_all, _ = batch_mod.sms1_pairs(T, R, dev)
+    n_pairs = i_all.shape[0]
+    pick = torch.linspace(0, n_pairs - 1, 256, device=dev).round().long()
+    ii, jj = i_all[pick].contiguous(), j_all[pick].contiguous()
+    d_k, i_k = knn_mod.knn_pairs(world, valid, ii, jj)
+    d_r, i_r = knn_mod.knn_pairs_reference(world, valid, ii, jj)
+    torch.cuda.synchronize()
+    check(torch.equal(i_k, i_r) and torch.equal(d_k, d_r),
+          "knn_pairs on the episode's pairs: kernel and plain differ")
+    print(f"knn_pairs on 256 of the episode's {n_pairs} pairs: kernel == plain bit for bit")
+    del d_k, i_k, d_r, i_r
+
+    # The main path: association, IMU chains, 15-dof solve (warm-up, then timed).
+    thresholds = tuple(sc["thresholds"])
+    n_iter = len(thresholds) * sc["lm_iters"]
+
+    def solve():
+        return batch_mod.optimize_batch_sms1_imu(cfg, prob, sms, chain, thresholds=thresholds,
+                                                 lm_iters=sc["lm_iters"], solver=sc["solver"])
+
+    knn_mod.knn_pairs.launches = 0
+    assoc_s, sms = _sync_s(lambda: batch_mod.build_sms1(cfg, ep.scan, ep.scan_valid, p_odo,
+                                                        q_odo, device=dev))
+    chain_s, chain = _sync_s(lambda: batch_mod.build_imu_chain(
+        cfg, ep.imu_acc, ep.imu_gyr, ep.imu_dt, ep.imu_valid, device=dev))
+    warm_s, out1 = _sync_s(solve)
+    launches = knn_mod.knn_pairs.launches
+    want = -(-n_pairs // batch_mod.SMS1_CHUNK)
+    check(launches == want, f"knn_pairs launched {launches} times, the association's "
+                            f"chunking says {want}")
+    solve_s, out2 = _sync_s(solve)
+    check(all(torch.equal(a, b) for a, b in zip(out1[:5], out2[:5])) and out1[5] == out2[5],
+          "two level-1 solves on the card differ")
+    p, q, v, ba, bg, costs = out2
+    for name, a in zip(("p", "q", "v", "ba", "bg"), (p, q, v, ba, bg)):
+        check(bool(torch.isfinite(a).all()), f"level-1 {name} not finite")
+    check(tuple(p.shape) == (T, 3) and tuple(v.shape) == (T, 3), "level-1 state shapes")
+
+    sms1_against_jax(s, sms, chain, out2, dev)
+    p0, _, _ = batch_mod.optimize_batch(cfg, prob, lm_iters=sc["lm_iters"])
+    print(f"level-1 solve (4 stages x {sc['lm_iters']} LM iters, 15-dof, direct): "
+          f"{solve_s:.3f} s, {1e3 * solve_s / n_iter:.2f} ms per LM iteration (warm-up run "
+          f"{warm_s:.2f} s); two runs bit-identical; costs {costs} (JAX f64 "
+          f"{fx['costs_f64'].tolist()})")
+    print(f"RMSE vs truth: odometry {_rmse(p_odo, ep.gt_p):.4f} m, level 0 "
+          f"{_rmse(p0, ep.gt_p):.4f} m, level 1 {_rmse(p, ep.gt_p):.4f} m (JAX f64 level 1 "
+          f"{_rmse(fx['p_f64'], ep.gt_p):.4f} m)")
+
+    # Breakdowns, each part closed by a sync.
+    timings = {}
+    batch_mod.build_sms1(cfg, ep.scan, ep.scan_valid, p_odo, q_odo, device=dev,
+                         timings=timings)
+    print(f"level-1 association {assoc_s:.3f} s for {n_pairs} pairs in {launches} chunks "
+          f"(each step synced: knn {timings['knn']:.3f} s, gather + plane fit "
+          f"{timings['planes']:.3f} s, selection {timings['select']:.3f} s); build_imu_chain "
+          f"{chain_s:.3f} s")
+    hw = R + 1
+    plan = batch_mod.assembly_plan(prob, hw)
+    imu_plan = batch_mod.imu_chain_plan(T, hw, dev)
+    gravity = batch_mod._imu_params(cfg).gravity_vec(dev)
+    state = (p, q, v, ba, bg)
+    th = thresholds[-1]
+    pose_s, _ = _sync_s(lambda: batch_mod._assemble_sms1_pose(p, q, prob, sms, th, hw, plan),
+                        reps=3)
+    imu_s, _ = _sync_s(lambda: batch_mod._imu_chain_jacobians(*state, chain, gravity), reps=3)
+    sys_s, (band, grad) = _sync_s(lambda: batch_mod._sms1_imu_system(
+        *state, prob, sms, chain, th, hw, plan, imu_plan, gravity), reps=3)
+    batch_mod._damp(band, torch.tensor(1e-4, dtype=torch.float64, device=dev), hw)
+    cr_s, dx = _sync_s(lambda: banded.cyclic_reduction_solve(band, -grad), reps=3)
+    check(bool(torch.isfinite(dx).all()), "15-dof CR solve not finite")
+    cost_s, _ = _sync_s(lambda: batch_mod._sms1_imu_cost(*state, prob, sms, chain, th, gravity),
+                        reps=3)
+    print(f"level-1 LM iteration parts: pose assembly {1e3 * pose_s:.2f} ms, IMU Jacobians "
+          f"{1e3 * imu_s:.2f} ms (15-dof system with both {1e3 * sys_s:.2f} ms), 15-dof CR "
+          f"solve {1e3 * cr_s:.2f} ms (band {T} x {2 * hw + 1} x 15 x 15), cost "
+          f"{1e3 * cost_s:.2f} ms")
+
+    # The batched kNN: all pairs in one launch, and one association chunk
+    # against its plain version and a yardstick.
+    sms_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = gpu_clock_mhz()
+    all_ms = time_device_ms(lambda: knn_mod.knn_pairs(world, valid, i_all, j_all), reps=5)
+    all_bound = knn_pairs_bound_ms(valid, i_all, j_all, sms_count, clock)
+    ci, cj = i_all[:batch_mod.SMS1_CHUNK], j_all[:batch_mod.SMS1_CHUNK]
+    d_k, i_k = knn_mod.knn_pairs(world, valid, ci, cj)
+    d_r, i_r = knn_mod.knn_pairs_reference(world, valid, ci, cj)
+    check(torch.equal(i_k, i_r) and torch.equal(d_k, d_r),
+          "knn_pairs on the timed association chunk: kernel and plain differ")
+    del d_k, i_k, d_r, i_r
+    ms = time_device_ms(lambda: knn_mod.knn_pairs(world, valid, ci, cj))
+    plain_ms = time_device_ms(lambda: knn_mod.knn_pairs_reference(world, valid, ci, cj), reps=2)
+    # Yardstick only, not the same function: batched GEMM-expanded
+    # distances and topk, no masks; the port never calls it.
+    library_ms = time_device_ms(lambda: torch.topk(torch.cdist(world[ci], world[cj]), 5,
+                                                   largest=False), reps=5)
+    bound_ms = knn_pairs_bound_ms(valid, ci, cj, sms_count, clock)
+    print(f"knn_pairs, all {n_pairs} pairs in one launch: {all_ms:.4f} ms against its FP32 "
+          f"bound {all_bound:.4f} ms ({all_bound / all_ms:.3f} of it); one association chunk "
+          f"of {len(ci)} pairs (kernel == plain bit for bit): kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, batched "
+          f"topk(cdist) {library_ms:.4f} ms (yardstick), bound {bound_ms:.4f} ms (CUDA events, "
+          f"median)")
+    return {"launches": launches, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations", "library_ms": library_ms,
+            "library_call": "torch.topk(torch.cdist(qi, pj), 5, largest=False) over the "
+                            "chunk's pairs: yardstick only, GEMM expansion and no masks",
+            "shape": f"{len(ci)} pairs of {world.shape[1]} x {world.shape[1]}",
+            "all_pairs": n_pairs, "all_pairs_ms": all_ms, "all_pairs_bound_ms": all_bound}
+
+
+def pipeline_phase(dev, level=0):
+    """``run_pipeline`` on 15 bench-shape keyframes, its batch stage at
+    ``level``, against the JAX pipeline's CSV rows."""
+    fx = np.load(PIPE_FIXTURE if level == 0 else PIPE_SMS1_FIXTURE)
+    sc = json.loads(str(fx["scenario_json"]))
+    cfg = bench_config() if level == 0 else sms1_config(bench_config())
     check(json.loads(str(fx["config_json"])) == json.loads(json.dumps(dataclasses.asdict(cfg))),
           "the pipeline fixture was made with another configuration")
     n = sc["n_keyframes"]
@@ -440,27 +742,38 @@ def pipeline_phase(dev):
                                    epoch_stride=sc["epoch_stride"], seed=sc["gnss_seed"])
     ep.anchor_ecef = anchor
     with tempfile.TemporaryDirectory() as tmp:
-        knn_mod.knn.launches = 0
+        knn_mod.knn.launches = knn_mod.knn_pairs.launches = 0
         run_s, res = _sync_s(lambda: run_pipeline(ep, cfg, out_dir=tmp, run_lc=False,
                                                   device=dev))
-        launches = knn_mod.knn.launches
+        launches, pair_launches = knn_mod.knn.launches, knn_mod.knn_pairs.launches
         rows = {name: np.loadtxt(os.path.join(tmp, name + ".csv"), delimiter=",", ndmin=2,
                                  skiprows=3 if name.endswith("cov") else 0)
                 for name in ("tc_sw_result", "tc_batch_result", "tc_batch_cov")}
     check(launches == n, f"knn kernel launched {launches} times in {n} keyframes")
+    want_pairs = 0 if level == 0 else -(-sum(max(n - r - 1, 0) for r in range(
+        cfg.estimator.search_range)) // batch_mod.SMS1_CHUNK)
+    check(pair_launches == want_pairs,
+          f"knn_pairs launched {pair_launches} times, level {level} says {want_pairs}")
     for f in ("p_sw", "q_sw", "p_batch", "q_batch", "cov_batch", "cov_batch_cal"):
         check(np.isfinite(getattr(res, f)).all(), f"pipeline {f} not finite")
-    check(np.array_equal(res.n_lidar_factors, fx["n_lidar_factors"]),
-          f"n_lidar_factors {res.n_lidar_factors.tolist()} != JAX "
-          f"{fx['n_lidar_factors'].tolist()}")
-    # Stage 2 against JAX's pipeline with its batch solve in f64 (the port's
-    # arithmetic); against its mixed-precision main path within 10x JAX's
-    # own mixed-versus-f64 distance on this episode.
+    if level == 0:
+        check(np.array_equal(res.n_lidar_factors, fx["n_lidar_factors"]),
+              f"n_lidar_factors {res.n_lidar_factors.tolist()} != JAX "
+              f"{fx['n_lidar_factors'].tolist()}")
+    # Stage 1 against JAX's within the replay's tolerances. Stage 2 against
+    # JAX's pipeline with its batch solve in f64 (the port's arithmetic):
+    # level 0 within the replay's tolerances, which stage 1 hands on; level
+    # 1, which re-associates at the stage-1 poses, within this run's stage-1
+    # difference times JAX's measured gain from a stage-1 difference to its
+    # level-1 batch's, plus 10x JAX's own spread under a +-1e-9 m nudge of
+    # stage 1. Against JAX's mixed-precision main path: that plus 10x JAX's
+    # own mixed-versus-f64 distance on this episode (yaw/pitch/roll not
+    # held at level 0, where that distance reaches 10 deg).
     jax_gap = np.abs(fx["tc_batch_result"][:, 9:12] - fx["tc_batch_result_f64"][:, 9:12]).max()
+    jax_gap_ypr = _ypr_diff(fx["tc_batch_result"][:, 6:9], fx["tc_batch_result_f64"][:, 6:9])
     report = []
-    for name, key, tol in (("tc_sw_result", "tc_sw_result", P_TOL_M),
-                           ("tc_batch_result", "tc_batch_result_f64", P_TOL_M),
-                           ("tc_batch_result", "tc_batch_result", 10 * jax_gap)):
+    for name, key in (("tc_sw_result", "tc_sw_result"), ("tc_batch_result", "tc_batch_result_f64"),
+                      ("tc_batch_result", "tc_batch_result")):
         got, want = rows[name], fx[key]
         check(got.shape == want.shape, f"{name}: {got.shape} rows, JAX {want.shape}")
         check(np.array_equal(got[:, :3], want[:, :3]), f"{name}: times differ")
@@ -468,23 +781,38 @@ def pipeline_phase(dev):
                     np.abs(got[:, 5] - want[:, 5]).max())
         # lat/lon are written to 1e-8 degrees, ~1.1 mm: add that rounding.
         d_ll = M_PER_DEG_LAT * np.abs(got[:, 3:5] - want[:, 3:5]).max()
-        d_ypr = np.abs(got[:, 6:9] - want[:, 6:9]).max()
+        d_ypr = _ypr_diff(got[:, 6:9], want[:, 6:9])
+        if key == "tc_sw_result":
+            tol, tol_ypr, d_sw = P_TOL_M, YPR_TOL_DEG, d_pos
+        elif key == "tc_batch_result_f64":
+            tol, tol_ypr = (P_TOL_M, YPR_TOL_DEG) if level == 0 else (
+                float(fx["gain_p_per_m"]) * d_sw + 10.0 * float(fx["nudge_dp"]),
+                float(fx["gain_ypr_per_m"]) * d_sw + 10.0 * float(fx["nudge_ypr"]))
+            tol_f64, tol_ypr_f64 = tol, tol_ypr
+        else:
+            tol = tol_f64 + 10.0 * jax_gap
+            tol_ypr = None if level == 0 else tol_ypr_f64 + 10.0 * jax_gap_ypr
         check(d_pos <= tol and d_ll <= tol + 1.2e-3,
               f"{name}: positions differ from JAX's {key} by {d_pos} m, lat/lon by "
               f"{d_ll} m (tol {tol})")
-        check(key == "tc_batch_result" or d_ypr <= YPR_TOL_DEG,
-              f"{name}: yaw/pitch/roll differ from JAX's {key} by {d_ypr} deg")
+        check(tol_ypr is None or d_ypr <= tol_ypr,
+              f"{name}: yaw/pitch/roll differ from JAX's {key} by {d_ypr} deg (tol {tol_ypr})")
         report.append(f"{name} vs {key}: max ENU/alt diff {d_pos:.3e} m, lat/lon "
-                      f"{d_ll:.3e} m (tol {tol:.1e}), ypr {d_ypr:.3e} deg")
-    cov_got, cov_want = rows["tc_batch_cov"], fx["tc_batch_cov_f64"]
-    check(cov_got.shape == cov_want.shape and np.isfinite(cov_got).all(),
+                      f"{d_ll:.3e} m (tol {tol:.3e}), ypr {d_ypr:.3e} deg (tol "
+                      + ("not held" if tol_ypr is None else f"{tol_ypr:.3e}") + ")")
+    cov_got = rows["tc_batch_cov"]
+    check(cov_got.shape == (n, 10) and np.isfinite(cov_got).all(),
           "tc_batch_cov.csv is not the expected table")
-    d_std = (np.abs(cov_got[:, 1:] - cov_want[:, 1:]) / np.abs(cov_want[:, 1:])).max()
-    print(f"pipeline {n} keyframes (stage 1 + stage 2 + covariances, CSVs written): "
-          f"{run_s:.2f} s; knn launches {launches}; n_lidar_factors equal at all {n} steps")
-    print("pipeline vs JAX: " + "; ".join(report)
-          + f"; tc_batch_cov stds vs f64 max rel diff {d_std:.3e}; JAX's own "
-          f"mixed-vs-f64 batch distance {jax_gap:.3e} m")
+    cov_note = ""
+    if level == 0:
+        cov_want = fx["tc_batch_cov_f64"]
+        d_std = (np.abs(cov_got[:, 1:] - cov_want[:, 1:]) / np.abs(cov_want[:, 1:])).max()
+        cov_note = f"; tc_batch_cov stds vs f64 max rel diff {d_std:.3e}"
+    print(f"pipeline {n} keyframes, batch level {level} (stage 1 + stage 2 + covariances, CSVs "
+          f"written): {run_s:.2f} s; knn launches {launches}, knn_pairs launches "
+          f"{pair_launches}")
+    print(f"pipeline level {level} vs JAX: " + "; ".join(report) + cov_note
+          + f"; JAX's own mixed-vs-f64 batch distance {jax_gap:.3e} m, {jax_gap_ypr:.3e} deg")
     return launches
 
 
@@ -496,9 +824,14 @@ def main():
     copy_launches = probe_phase()
     batch_phase(dev)
     pipeline_phase(dev)
+    pairs_kern = sms1_phase(dev)
+    pairs_kern["max_abs_err"] = knn_kern.pop("max_abs_err_pairs")
+    pipeline_phase(dev, level=1)
     print(json.dumps({"kernels": [
         {"name": "knn5_f32", "route": "cuda", "source": "glio_tpu_torch/csrc/knn.cu",
          "replaces": "glio_tpu/ops/knn_pallas.py:30", "launches": launches, **knn_kern},
+        {"name": "knn5_pairs_f32", "route": "cuda", "source": "glio_tpu_torch/csrc/knn.cu",
+         "replaces": "glio_tpu/ops/knn_pallas.py:30", **pairs_kern},
         {"name": "copy_f32", "route": "cuda", "source": "glio_tpu_torch/csrc/copy.cu",
          "replaces": "scripts/probe_pallas.py:28", "launches": copy_launches, **copy_kern}]}))
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,10 @@
 //
 // Replaces glio_tpu/ops/knn_pallas.py::_knn_kernel (the TPU kernel behind
 // knn_pallas, a drop-in for glio_tpu.lidar.neighbors.knn) and serves the
-// sliding-window association: 5 x 1024 window points against a voxelled
-// local map of at most 16,384 points.
+// sliding-window association, 5 x 1024 window points against a voxelled
+// local map of at most 16,384 points, and batch level 1's association,
+// ~21 k keyframe pairs of 1024 x 1024 points in one launch
+// (glio_knn5_pairs_f32).
 //
 // Contract (neighbors.knn's, which the estimator consumes):
 //   * squared distance computed directly as (dx*dx + dy*dy) + dz*dz. The
@@ -63,7 +65,11 @@
 //     cluster.sync() keeps each block's shared memory alive until its peers
 //     have read it.
 //     One launch, no global scratch, no atomics.
-// The grid's y dimension is left free for a batch of independent problems.
+// A batch of independent problems takes the grid's y dimension: block row b
+// queries frame pair_i[b] of a stack of equal-sized clouds against the map
+// frame pair_j[b] of the same stack (batch level 1's keyframe pairs, 1024 x
+// 1024 each), and writes the b-th (S, K) slice of the output. Only the base
+// pointers move; the scan, the merge and the contract are the same.
 //
 // Why the result is the plain version's, bit for bit, whatever the order in
 // which blocks run: the plain version's output is the first k pairs, in the
@@ -206,15 +212,31 @@ __device__ __forceinline__ void stage_points(float* stage, const float* __restri
   __syncthreads();
 }
 
-template <int K, int kR>
+template <int K, int kR, bool kPairs>
 __global__ void __launch_bounds__(kThreads)
 knn_kernel(const float* __restrict__ query, const uint8_t* __restrict__ query_valid,
            const float* __restrict__ points, const uint8_t* __restrict__ points_valid,
            int n_query, int n_points, int split,
-           float* __restrict__ out_d, int64_t* __restrict__ out_i) {
+           float* __restrict__ out_d, int64_t* __restrict__ out_i,
+           const int64_t* __restrict__ pair_i, const int64_t* __restrict__ pair_j,
+           int64_t n_frames) {
   __shared__ __align__(16) float stage[3 * kTile];   // point t at [3 t, 3 t + 3)
   __shared__ float list_d[kTileQueries * K];   // query j's list at [j * K, j * K + K)
   __shared__ int list_i[kTileQueries * K];
+  if constexpr (kPairs) {
+    // Pairs: query and map are frames of one stack of n_frames clouds of
+    // n_query (= n_points) points each.
+    const int64_t b = blockIdx.y;
+    const int64_t fi = pair_i[b];
+    const int64_t fj = pair_j[b];
+    if (fi < 0 || fi >= n_frames || fj < 0 || fj >= n_frames) __trap();   // a caller's bug
+    query += fi * 3 * n_query;
+    query_valid += fi * n_query;
+    points += fj * 3 * n_points;
+    points_valid += fj * n_points;
+    out_d += b * n_query * K;
+    out_i += b * n_query * K;
+  }
   cg::cluster_group cluster = cg::this_cluster();
   const int csize = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -341,6 +363,46 @@ knn_kernel(const float* __restrict__ query, const uint8_t* __restrict__ query_va
   cluster.sync();   // the peers have read this block's lists before it exits
 }
 
+// One launch of knn_kernel: ceil(n_query / 16) clusters of `cluster` blocks
+// along x, `rows` problems along y. Returns the launch's cudaError_t.
+template <bool kPairs>
+int launch(const void* query, const void* query_valid, const void* points,
+           const void* points_valid, size_t n_query, size_t n_points, size_t cluster,
+           size_t split, void* out_d, void* out_i, const void* pair_i, const void* pair_j,
+           size_t n_frames, size_t rows, void* stream) {
+  const size_t tiles = (n_query + kTileQueries - 1) / kTileQueries;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(tiles * cluster), static_cast<unsigned>(rows), 1);
+  config.blockDim = dim3(kThreads, 1, 1);
+  config.dynamicSmemBytes = 0;
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = attr;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, knn_kernel<5, kQueriesPerWarp, kPairs>, static_cast<const float*>(query),
+      static_cast<const uint8_t*>(query_valid), static_cast<const float*>(points),
+      static_cast<const uint8_t*>(points_valid), static_cast<int>(n_query),
+      static_cast<int>(n_points), static_cast<int>(split), static_cast<float*>(out_d),
+      static_cast<int64_t*>(out_i), static_cast<const int64_t*>(pair_i),
+      static_cast<const int64_t*>(pair_j), static_cast<int64_t>(n_frames));
+  if (err != cudaSuccess) {
+    cudaGetLastError();   // leave no error behind for the next launch to report
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_plan(size_t n_query, size_t n_points, size_t cluster, size_t split) {
+  return 3 * n_query > INT32_MAX || 3 * n_points > INT32_MAX || cluster < 1 ||
+         cluster > kMaxCluster || (cluster & (cluster - 1)) != 0 || split > n_points ||
+         cluster * split < n_points;
+}
+
 }  // namespace
 
 // query (Q, 3) f32, query_valid (Q,) bool, points (N, 3) f32, points_valid
@@ -354,34 +416,29 @@ extern "C" int glio_knn5_f32(const void* query, const void* query_valid, const v
                              const void* points_valid, size_t n_query, size_t n_points,
                              size_t cluster, size_t split, void* out_d, void* out_i,
                              void* stream) {
-  if (3 * n_query > INT32_MAX || 3 * n_points > INT32_MAX || cluster < 1 ||
-      cluster > kMaxCluster || (cluster & (cluster - 1)) != 0 || split > n_points ||
-      cluster * split < n_points)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_plan(n_query, n_points, cluster, split)) return static_cast<int>(cudaErrorInvalidValue);
   if (n_query == 0) return 0;
-  const size_t tiles = (n_query + kTileQueries - 1) / kTileQueries;
+  return launch<false>(query, query_valid, points, points_valid, n_query, n_points, cluster,
+                       split, out_d, out_i, nullptr, nullptr, 0, 1, stream);
+}
 
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(static_cast<unsigned>(tiles * cluster), 1, 1);
-  config.blockDim = dim3(kThreads, 1, 1);
-  config.dynamicSmemBytes = 0;
-  config.stream = static_cast<cudaStream_t>(stream);
-  config.attrs = attr;
-  config.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &config, knn_kernel<5, kQueriesPerWarp>, static_cast<const float*>(query),
-      static_cast<const uint8_t*>(query_valid), static_cast<const float*>(points),
-      static_cast<const uint8_t*>(points_valid), static_cast<int>(n_query),
-      static_cast<int>(n_points), static_cast<int>(split), static_cast<float*>(out_d),
-      static_cast<int64_t*>(out_i));
-  if (err != cudaSuccess) {
-    cudaGetLastError();   // leave no error behind for the next launch to report
-    return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
+// A batch of n_pairs problems over one stack of clouds: world (F, S, 3) f32
+// and world_valid (F, S) bool, contiguous; pair_i and pair_j (n_pairs,) int64
+// frame indices in [0, F), on the device. Problem b is
+// glio_knn5_f32(world[pair_i[b]], ..., world[pair_j[b]], ...) into out_d
+// (n_pairs, S, 5) f32 and out_i (n_pairs, S, 5) int64, indices into frame
+// pair_j[b]'s S points. (cluster, split) is knn_plan's for S x S with the
+// batch's tiles counted. One launch, n_pairs rows of the grid: at most
+// 65,535 (the grid's y limit); more is refused, here and by the wrapper.
+// A frame index out of range traps (a device-side fault, as a bad index of a
+// PyTorch gather would).
+extern "C" int glio_knn5_pairs_f32(const void* world, const void* world_valid,
+                                   const void* pair_i, const void* pair_j, size_t n_frames,
+                                   size_t n_scan, size_t n_pairs, size_t cluster, size_t split,
+                                   void* out_d, void* out_i, void* stream) {
+  if (bad_plan(n_scan, n_scan, cluster, split) || n_pairs > 65535 || n_frames < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_pairs == 0 || n_scan == 0) return 0;
+  return launch<true>(world, world_valid, world, world_valid, n_scan, n_scan, cluster, split,
+                      out_d, out_i, pair_i, pair_j, n_frames, n_pairs, stream);
 }

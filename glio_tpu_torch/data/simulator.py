@@ -403,3 +403,12 @@ def drifted_trajectory(n_keyframes, max_drift=6.0):
     s = (k / max(n_keyframes - 1, 1)) ** 2
     p_odo = p_true + max_drift * s[:, None] * np.array([1.0, -0.6, 0.4])
     return kf_time, p_true, q_true, p_odo
+
+
+def random_walk_odometry(gt_p, seed, drift_step=0.05, noise=0.05):
+    """An odometry for batch level 1 (``scripts/bench_sms1.py:34-38``): the
+    true positions plus a random walk of N(0, ``drift_step``) m steps plus
+    N(0, ``noise``) m of white noise, from ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    drift = np.cumsum(rng.normal(0, drift_step, gt_p.shape), axis=0)
+    return gt_p + drift + noise * rng.normal(size=gt_p.shape)

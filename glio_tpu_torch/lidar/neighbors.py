@@ -20,8 +20,16 @@ def _shr(x, s: int):
 
 
 def gather_neighbors(points, idx):
-    """(Q, k, 3) neighbour coordinates; idx −1 gives zeros."""
-    out = points[idx.clamp(min=0)]
+    """(..., Q, k, 3) neighbour coordinates; idx −1 gives zeros.
+
+    points (N, 3) with idx (Q, k), or a batch: points (B, N, 3) with idx
+    (B, Q, k) indexing each problem's own points."""
+    safe = idx.clamp(min=0)
+    if points.dim() == 2:
+        out = points[safe]
+    else:
+        batch = torch.arange(points.shape[0], device=idx.device)
+        out = points[batch.view(-1, *([1] * (idx.dim() - 1))), safe]
     return torch.where((idx >= 0)[..., None], out, torch.zeros_like(out))
 
 

@@ -1,4 +1,4 @@
-"""Batched k-point plane fits (port of ``glio_tpu/lidar/plane_fit.py:34-97``).
+"""Batched k-point plane fits (port of ``glio_tpu/lidar/plane_fit.py:34-122``).
 
 Fits n with A·n = −1 over each query's neighbours, checks that every
 neighbour lies within ``plane_tol`` of the plane, and weights the fit by
@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..solver.linalg import solve_3x3
+from ..solver.linalg import eigh3, solve_3x3
 
 
 EPS = 1e-9   # Tikhonov floor of the 3×3 solve and the normal-length guard
@@ -60,3 +60,45 @@ def fit_planes(neigh, neigh_valid, query, plane_tol: float = 0.06) -> PlaneFit:
     qn = torch.sqrt(_dot(query, query))
     weight = 1.0 - 0.9 * torch.abs(pd) / torch.sqrt(torch.sqrt(torch.clamp(qn, min=EPS)))
     return PlaneFit(normal=normal, d=d, valid=valid, weight=weight)
+
+
+def _sum_neighbours(x):
+    """Sum over the neighbour axis (-2), one neighbour after the other, so
+    that the CPU and the card add in the same order."""
+    acc = x[..., 0, :]
+    for k in range(1, x.shape[-2]):
+        acc = acc + x[..., k, :]
+    return acc
+
+
+def fit_planes_centroid(neigh, neigh_valid, min_planarity: float = 0.0):
+    """Centroid and scatter-matrix plane fit: (normal, centroid, planarity,
+    valid), for batch level 1's binary plane factors, which carry a plane
+    as (normal, centroid) in the other keyframe's body frame.
+
+    neigh (..., K, 3) f32, neigh_valid (..., K) bool. Planarity is
+    1 − 3λ₀/(λ₀+λ₁+λ₂) of the scatter matrix's eigenvalues (1 for a perfect
+    plane, 0 for an isotropic cloud); the normal is λ₀'s eigenvector, with
+    an arbitrary sign. Centroid and scatter matrix are f32, as in the JAX
+    package, summed over the neighbours in order; the 3×3 eigensystem is
+    solved in f64 by Jacobi rotations (``solver.linalg.eigh3``) and cast
+    back, so the CPU and the card give the same bits, and JAX's f32
+    ``eigh`` agrees to its own f32 error.
+    """
+    dtype = neigh.dtype
+    m = neigh_valid.to(dtype)[..., None]
+    cnt = torch.clamp(torch.sum(m, dim=-2), min=1.0)              # (..., 1), exact
+    cent = _sum_neighbours(neigh * m) / cnt                        # (..., 3)
+    dc = (neigh - cent[..., None, :]) * m
+    c = cnt[..., 0]
+
+    def scatter(i, j):
+        return (_sum_neighbours(dc[..., i:i + 1] * dc[..., j:j + 1])[..., 0] / c).to(torch.float64)
+
+    w64, V64 = eigh3(scatter(0, 0), scatter(0, 1), scatter(0, 2), scatter(1, 1),
+                     scatter(1, 2), scatter(2, 2))
+    w, normal = w64.to(dtype), V64[..., :, 0].to(dtype)
+    tr = (w[..., 0] + w[..., 1]) + w[..., 2]
+    planarity = 1.0 - 3.0 * w[..., 0] / torch.clamp(tr, min=1e-12)
+    valid = (c >= 3) & (planarity >= min_planarity)
+    return normal, cent, planarity, valid

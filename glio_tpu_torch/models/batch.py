@@ -1,4 +1,4 @@
-"""Batch (global) fusion, level 0 (port of ``glio_tpu/models/batch.py:49-773, 864-1082``).
+"""Batch (global) fusion, levels 0 and 1 (port of ``glio_tpu/models/batch.py:49-773, 864-1082, 1529-2042``).
 
 The stage that writes ``tc_batch_result.csv``: the whole sliding-window
 trajectory is re-solved against the GNSS double differences
@@ -18,13 +18,20 @@ loop never waits on the host: accept and reject are ``torch.where``s and
 the cost is read once per stage. ``build_problem`` and
 ``calibrate_batch_covariance`` are host numpy, as in the JAX package.
 
+Level 1 (``sms_fusion_level=1``, at the end of this module) replaces the
+relative-pose rows by binary point-to-plane factors between keyframes i and
+i + 1..R, associated on the device by the 5-NN kernel over all keyframe
+pairs at once (``build_sms1``), and adds IMU chains over 15-dof keyframe
+states (``build_imu_chain``, ``optimize_batch_sms1_imu``).
+
 Plain f64 throughout: the JAX package's ``mixed=True`` (f32 whitening and
 Jacobians for the TPU's emulated f64) is not ported. Not ported yet, and
 refused with ``NotImplementedError``: Doppler rows (``doppler_in_batch``),
-``solver="chol_pcg"``, and the level-1, atmospheric, reference-cadence,
-incremental and sharded variants.
+``solver="chol_pcg"``, and the atmospheric, reference-cadence, incremental
+and sharded variants.
 """
 
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -363,19 +370,21 @@ def assembly_plan(prob: BatchProblem, hw: int) -> AssemblyPlan:
     T = prob.p_odo.shape[0]
     dev = prob.p_odo.device
     i_idx = np.arange(T)
-
-    def pair(a, b):
-        return (banded.block_plan(a, a, hw, dev), banded.block_plan(a, b, hw, dev),
-                banded.block_plan(b, a, hw, dev), banded.block_plan(b, b, hw, dev),
-                banded.scatter_plan(a, dev), banded.scatter_plan(b, dev))
-
     rel = []
     for r in range(prob.rel_valid.shape[1]):
         # Pairs past the end are clamped to T − 1; their rows are masked.
         j_idx = np.minimum(i_idx + r + 1, T - 1)
-        rel.append(pair(i_idx, j_idx))
+        rel.append(pair_plans(i_idx, j_idx, hw, dev))
     k = prob.ep_left.cpu().numpy()
-    return AssemblyPlan(tuple(rel), pair(k, k + 1))
+    return AssemblyPlan(tuple(rel), pair_plans(k, k + 1, hw, dev))
+
+
+def pair_plans(a, b, hw: int, device) -> tuple:
+    """The six scatter plans of ``_scatter_pair`` for the pairs (a[n], b[n])
+    (host int arrays)."""
+    return (banded.block_plan(a, a, hw, device), banded.block_plan(a, b, hw, device),
+            banded.block_plan(b, a, hw, device), banded.block_plan(b, b, hw, device),
+            banded.scatter_plan(a, device), banded.scatter_plan(b, device))
 
 
 def _hat(v):
@@ -472,19 +481,26 @@ def _assemble_core_impl(p, q, prob: BatchProblem, threshold, hw: int,
         _scatter_pair(band, grad, Ji * mw, Jj * mw, res, plans)
     w_rel_all = torch.stack(w_rel_out, dim=1) if derive_w and w_rel_out else w_rel
 
-    # --- DD factors, pairs (k, k+1), positions only.
-    R_el = r_ecef_local(prob.anchor_ecef, prob.yaw_enu_local)
-    res, JP, w_dd_rows = _dd_row_jac(p, R_el, prob, threshold, w_dd, robust)
+    res, w_dd_rows = _scatter_dd(band, grad, p, prob, threshold, w_dd, robust, plan.dd)
     cost = cost + 0.5 * torch.sum(res * res)
     w_dd_all = w_dd_rows.reshape(w_dd.shape) if derive_w else w_dd
+    return band, grad, cost, w_rel_all, w_dd_all
+
+
+def _scatter_dd(band, grad, p, prob: BatchProblem, threshold, w_dd, robust, plans):
+    """The DD factors, pairs (k, k+1), positions only, into the pose
+    corner of (band, grad); returns their rows and IRLS weights."""
+    D = band.shape[-1]
+    R_el = r_ecef_local(prob.anchor_ecef, prob.yaw_enu_local)
+    res, JP, w_dd_rows = _dd_row_jac(p, R_el, prob, threshold, w_dd, robust)
     # ∂p_local/∂p_k = ratio·I, ∂/∂p_k+1 = (1 − ratio)·I.
     ratio = prob.ep_ratio[:, None, None]
-    Ji = torch.zeros(res.shape + (D,), dtype=F64, device=dev)
+    Ji = torch.zeros(res.shape + (D,), dtype=F64, device=p.device)
     Ji[..., :3] = JP * ratio
     Jj = torch.zeros_like(Ji)
     Jj[..., :3] = JP * (1.0 - ratio)
-    _scatter_pair(band, grad, Ji, Jj, res, plan.dd)
-    return band, grad, cost, w_rel_all, w_dd_all
+    _scatter_pair(band, grad, Ji, Jj, res, plans)
+    return res, w_dd_rows
 
 
 def _assemble(p, q, prob, threshold, hw, w_rel=None, w_dd=None, plan=None):
@@ -494,6 +510,15 @@ def _assemble(p, q, prob, threshold, hw, w_rel=None, w_dd=None, plan=None):
 
 
 # --- solves ------------------------------------------------------------------------
+
+def _damp(band, lam, hw: int):
+    """Levenberg damping of the diagonal blocks, in place."""
+    D = band.shape[-1]
+    eye = torch.eye(D, dtype=F64, device=band.device)
+    diag = band[:, hw]
+    band[:, hw] = diag + lam * (
+        eye * torch.clamp(torch.diagonal(diag, dim1=-2, dim2=-1), min=1.0)[..., None, :] * eye)
+
 
 def solve_batch_once(cfg, prob: BatchProblem, p0, q0, threshold,
                      lm_iters: int = 10, pcg_iters: int = 60,
@@ -511,18 +536,12 @@ def solve_batch_once(cfg, prob: BatchProblem, p0, q0, threshold,
     hw = cfg.estimator.search_range + 1
     if plan is None:
         plan = assembly_plan(prob, hw)
-    D = POSE_DOF
-    eye = torch.eye(D, dtype=F64, device=p0.device)
     p, q = p0, q0
     lam = torch.tensor(1e-4, dtype=F64, device=p0.device)
     for _ in range(lm_iters):
         band, grad, cost_cur, w_rel, w_dd = _assemble_core_impl(
             p, q, prob, threshold, hw, robust=robust, plan=plan)
-        # Levenberg damping on the diagonal blocks.
-        diag = band[:, hw]
-        band[:, hw] = diag + lam * (
-            eye * torch.clamp(torch.diagonal(diag, dim1=-2, dim2=-1),
-                              min=1.0)[..., None, :] * eye)
+        _damp(band, lam, hw)
         if solver == "direct":
             dx = banded.cyclic_reduction_solve(band, -grad)
         else:
@@ -671,3 +690,426 @@ def calibrate_batch_covariance(cfg, prob: BatchProblem, p, q, cov,
                   median_bias_3d=float(np.median(
                       np.linalg.norm(np.sqrt(extra), axis=-1))))
     return torch.as_tensor(cov, device=p.device), report
+
+
+# --- level 1: binary scan-to-multiscan planes and IMU chains ----------------------
+#
+# sms_fusion_level=1 (Estimator.cpp:2990-3077): the level-0 relative-pose rows
+# give way to binary point-to-plane factors between each keyframe i and
+# i + 1..R (BinaryLidarPlaneNormFactor, LidarKeyframeFactor.h:124-164); the
+# relative-attitude rows and the DD rows stay, and ImuFactor chains join over
+# 15-dof keyframe states (p, θ, v, ba, bg).
+
+SMS1_CHUNK = 2048   # keyframe pairs associated at a time: ~1.5 GB of intermediates
+STATE15 = 15        # δp, δθ, δv, δba, δbg per keyframe
+
+
+class Sms1Data(NamedTuple):
+    """Correspondences of level 1: F points of frame i against planes
+    (normal, centroid) in frame j = i + r + 1's body frame, per (i, r)
+    (reference association ``findGlobalCorrespondingSurfFeatures_Batch``,
+    Estimator.cpp:3710-3806; the 25 of 400 kept here are the top 25 by
+    planarity, deterministically)."""
+    pts_i: torch.Tensor       # (T, R, F, 3) points of frame i
+    normal_j: torch.Tensor    # (T, R, F, 3) plane normals, frame j
+    cent_j: torch.Tensor      # (T, R, F, 3) plane centroids, frame j
+    score: torch.Tensor       # (T, R, F)
+    mask: torch.Tensor        # (T, R, F) bool
+
+
+def _lap(timings, key, t0, device):
+    """When ``timings`` is a dict: sync the device and add the seconds since
+    ``t0`` to ``timings[key]`` (none for key None); returns the time now."""
+    if timings is None:
+        return t0
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t = time.perf_counter()
+    if key is not None:
+        timings[key] = timings.get(key, 0.0) + t - t0
+    return t
+
+
+def sms1_pairs(T: int, R: int, device):
+    """Every keyframe pair of level 1, offset-major as in the JAX package:
+    (i_idx, j_idx = i + r + 1, r_idx) int64 tensors on ``device``."""
+    i_idx, r_idx = [], []
+    for r in range(R):
+        n = max(T - r - 1, 0)
+        i_idx.append(np.arange(n))
+        r_idx.append(np.full(n, r))
+    i = np.concatenate(i_idx)
+    r = np.concatenate(r_idx)
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
+    return as_t(i), as_t(i + r + 1), as_t(r)
+
+
+def world_points(scans, p, q):
+    """(T, S, 3) f32: every keyframe's scan taken to the world by its pose,
+    in f64 and rounded once. The JAX package transforms both scans of each
+    pair the same way; doing it once a frame gives the same bits. Like the
+    JAX package (and unlike the window), level 1 applies the pose to the
+    lidar-frame points directly, without the lidar-body extrinsic."""
+    return (quat.rotate(q[:, None, :], scans.to(F64)) + p[:, None, :]).to(torch.float32)
+
+
+def build_sms1(cfg, scans, scans_valid, p_odo, q_odo, chunk: int = SMS1_CHUNK, *,
+               device, timings: dict = None) -> Sms1Data:
+    """Associate every (i, i + r + 1) keyframe pair's scans at the poses
+    (p_odo, q_odo), ``chunk`` pairs at a time, on ``device``: the 5-NN of
+    frame i's points in frame j's (``ops.knn.knn_pairs``), plane fits of
+    the neighbourhoods (planarity ≥ 0.8), the top F by planarity of the
+    points whose nearest neighbour is within ``kd_max_radius``, and the
+    planes taken to frame j's body frame. The result does not depend on
+    ``chunk``. With ``timings`` (a dict), each step is closed by a device
+    sync and its seconds are added under "knn", "planes" and "select".
+    """
+    from ..lidar import neighbors, plane_fit
+    from ..ops.knn import knn_pairs
+    est = cfg.estimator
+    T, S = scans_valid.shape[:2]
+    R = est.search_range
+    F = cfg.feature_selection.batch_feature_res_num
+    dev = torch.device(device)
+    scans = torch.as_tensor(np.asarray(scans), device=dev).to(torch.float32)
+    scans_valid = torch.as_tensor(np.asarray(scans_valid), device=dev).to(torch.bool)
+    p = torch.as_tensor(np.asarray(p_odo, float), dtype=F64, device=dev)
+    q = torch.as_tensor(np.asarray(q_odo, float), dtype=F64, device=dev)
+    world = world_points(scans, p, q)
+    r_max2 = est.kd_max_radius ** 2
+
+    out = Sms1Data(*(torch.zeros((T, R, F, 3), dtype=F64, device=dev) for _ in range(3)),
+                   torch.zeros((T, R, F), dtype=F64, device=dev),
+                   torch.zeros((T, R, F), dtype=torch.bool, device=dev))
+    i_all, j_all, r_all = sms1_pairs(T, R, dev)
+    for c0 in range(0, i_all.shape[0], chunk):
+        ii, jj, rr = i_all[c0:c0 + chunk], j_all[c0:c0 + chunk], r_all[c0:c0 + chunk]
+        t0 = _lap(timings, None, 0.0, dev)
+        d2, idx = knn_pairs(world, scans_valid, ii, jj)
+        t0 = _lap(timings, "knn", t0, dev)
+        neigh = neighbors.gather_neighbors(world[jj], idx)
+        nrm, cent, planarity, ok = plane_fit.fit_planes_centroid(neigh, idx >= 0,
+                                                                 min_planarity=0.8)
+        t0 = _lap(timings, "planes", t0, dev)
+        good = ok & scans_valid[ii] & (d2[..., 0] < r_max2)
+        sc = torch.where(good, planarity, torch.full_like(planarity, -1.0))
+        # jax.lax.top_k: the largest first, ties to the lowest index.
+        top_s, top_i = torch.sort(sc, dim=-1, descending=True, stable=True)
+        top_s, top_i = top_s[:, :F], top_i[:, :F]
+        take = lambda a: torch.gather(a, 1, top_i[..., None].expand(-1, -1, 3)).to(F64)
+        qj_inv = quat.conj(q[jj])[:, None, :]
+        out.pts_i[ii, rr] = take(scans[ii])
+        out.normal_j[ii, rr] = quat.rotate(qj_inv, take(nrm))
+        out.cent_j[ii, rr] = quat.rotate(qj_inv, take(cent) - p[jj][:, None, :])
+        out.score[ii, rr] = (est.lidar_const * top_s).to(F64)
+        out.mask[ii, rr] = top_s > 0
+        _lap(timings, "select", t0, dev)
+    return out
+
+
+def _check_level1_solver(solver: str):
+    """Level 1 solves each step exactly by cyclic reduction; the JAX
+    package's iterative alternatives, which no caller selects, are not
+    ported."""
+    if solver != "direct":
+        raise NotImplementedError(f"solver={solver!r} is not ported for level 1")
+
+
+def _att_residuals(p, q, prob: BatchProblem):
+    """(T, R, 3) relative-attitude rows: the first three of ``_rel_rows_raw``."""
+    rows = []
+    for r in range(prob.rel_valid.shape[1]):
+        qj = torch.roll(q, -(r + 1), dims=0)
+        err_q = quat.mul(quat.conj(prob.rel_dq[:, r]), quat.mul(quat.conj(q), qj))[:, 1:]
+        row = W_ATT * err_q
+        rows.append(torch.where(prob.rel_valid[:, r][:, None], row, torch.zeros_like(row)))
+    return torch.stack(rows, dim=1)
+
+
+def _sms1_residuals(p, q, sms: Sms1Data):
+    """(T, R, F) binary point-to-plane residuals."""
+    from ..factors.lidar import binary_plane_residual
+    rows = []
+    for r in range(sms.pts_i.shape[1]):
+        pj = torch.roll(p, -(r + 1), dims=0)
+        qj = torch.roll(q, -(r + 1), dims=0)
+        rows.append(binary_plane_residual(sms.pts_i[:, r], sms.normal_j[:, r],
+                                          sms.cent_j[:, r], sms.score[:, r], p, q, pj, qj,
+                                          sms.mask[:, r]))
+    return torch.stack(rows, dim=1)
+
+
+def _sms1_cost(p, q, prob, sms, threshold):
+    r_att = _att_residuals(p, q, prob)
+    r_sms = _sms1_residuals(p, q, sms)
+    r_dd = _dd_residuals(p, prob, threshold)
+    return 0.5 * (torch.sum(r_att * r_att) + torch.sum(r_sms * r_sms)
+                  + torch.sum(r_dd * r_dd))
+
+
+def _assemble_sms1_pose(p, q, prob: BatchProblem, sms: Sms1Data, threshold, hw: int,
+                        plan: AssemblyPlan = None):
+    """6-dof band and gradient of the attitude, binary-plane and DD rows.
+
+    Analytic Jacobians: for r = s·n_wᵀ(p_w − c_w) under the right
+    retraction q ⊞ δ = q·exp(δ),
+      ∂r/∂t1 =  s·n_w          ∂r/∂δθ1 = s·(p_b × R1ᵀn_w)
+      ∂r/∂t2 = −s·n_w          ∂r/∂δθ2 = s·(n_b × R2ᵀ(p_w − c_w) − c_b × n_b);
+    the attitude rows as in level 0. The DD rows are assembled into a band
+    of their own and added, as the JAX package does. Shared by the
+    pose-only and the 15-dof solves. Returns (band (T, 2hw+1, 6, 6),
+    grad (T, 6)).
+    """
+    T = p.shape[0]
+    D = POSE_DOF
+    dev = p.device
+    if plan is None:
+        plan = assembly_plan(prob, hw)
+    band = torch.zeros((T, 2 * hw + 1, D, D), dtype=F64, device=dev)
+    grad = torch.zeros((T, D), dtype=F64, device=dev)
+    for r, plans in enumerate(plan.rel):
+        pj = torch.roll(p, -(r + 1), dims=0)
+        qj = torch.roll(q, -(r + 1), dims=0)
+        m_att = prob.rel_valid[:, r].to(F64)
+        # Attitude rows: W_ATT·vec(Δq̄⁻¹ qi⁻¹ qj).
+        Mq = quat.conj(prob.rel_dq[:, r])
+        Q = quat.mul(quat.conj(q), qj)
+        MQ = quat.mul(Mq, Q)
+        res_att = W_ATT * MQ[:, 1:] * m_att[:, None]
+        JqjR = 0.5 * quat.qleft(MQ)[:, 1:, 1:]
+        JqiR = -0.5 * (quat.qleft(Mq) @ quat.qright(Q))[:, 1:, 1:]
+        Ji_att = torch.zeros((T, 3, D), dtype=F64, device=dev)
+        Ji_att[:, :, 3:6] = W_ATT * JqiR
+        Jj_att = torch.zeros((T, 3, D), dtype=F64, device=dev)
+        Jj_att[:, :, 3:6] = W_ATT * JqjR
+        Ji_att = Ji_att * m_att[:, None, None]
+        Jj_att = Jj_att * m_att[:, None, None]
+
+        # Binary plane rows, batched over (T, F).
+        pts, nrm, cen = sms.pts_i[:, r], sms.normal_j[:, r], sms.cent_j[:, r]
+        scm = sms.score[:, r] * sms.mask[:, r].to(F64)
+        p_w = quat.rotate(q[:, None, :], pts) + p[:, None, :]
+        n_w = quat.rotate(qj[:, None, :], nrm)
+        c_w = quat.rotate(qj[:, None, :], cen) + pj[:, None, :]
+        res_pl = scm * torch.sum(n_w * (p_w - c_w), dim=-1)
+        R1t_nw = quat.rotate(quat.conj(q)[:, None, :], n_w)
+        R2t_d = quat.rotate(quat.conj(qj)[:, None, :], p_w - c_w)
+        s3 = scm[..., None]
+        Ji_pl = torch.cat([s3 * n_w, s3 * quat.cross(pts, R1t_nw)], dim=-1)
+        Jj_pl = torch.cat([-s3 * n_w, s3 * (quat.cross(nrm, R2t_d) - quat.cross(cen, nrm))],
+                          dim=-1)
+        _scatter_pair(band, grad, torch.cat([Ji_att, Ji_pl], dim=1),
+                      torch.cat([Jj_att, Jj_pl], dim=1), torch.cat([res_att, res_pl], dim=1),
+                      plans)
+
+    band_dd = torch.zeros_like(band)
+    grad_dd = torch.zeros_like(grad)
+    w_dd = torch.ones(prob.ep_valid.shape + prob.master.shape[1:] + prob.sv_valid.shape[1:],
+                      dtype=F64, device=dev)
+    _scatter_dd(band_dd, grad_dd, p, prob, threshold, w_dd, None, plan.dd)
+    return band + band_dd, grad + grad_dd
+
+
+def _sms1_solve_once(cfg, prob: BatchProblem, sms: Sms1Data, p0, q0, threshold,
+                     lm_iters: int, plan: AssemblyPlan):
+    """One annealing stage of the pose-only level-1 solve: ``lm_iters``
+    damped Gauss-Newton iterations, no host sync. Returns (p, q, cost)."""
+    hw = cfg.estimator.search_range + 1
+    p, q = p0, q0
+    lam = torch.tensor(1e-4, dtype=F64, device=p0.device)
+    cost = _sms1_cost(p, q, prob, sms, threshold)
+    for _ in range(lm_iters):
+        band, grad = _assemble_sms1_pose(p, q, prob, sms, threshold, hw, plan)
+        _damp(band, lam, hw)
+        p_new, q_new = _retract(p, q, banded.cyclic_reduction_solve(band, -grad).reshape(-1))
+        new_cost = _sms1_cost(p_new, q_new, prob, sms, threshold)
+        better = new_cost < cost
+        p = torch.where(better, p_new, p)
+        q = torch.where(better, q_new, q)
+        cost = torch.where(better, new_cost, cost)
+        lam = torch.clamp(torch.where(better, lam * 0.3, lam * 5.0), 1e-9, 1e6)
+    return p, q, cost
+
+
+def optimize_batch_sms1(cfg, prob: BatchProblem, sms: Sms1Data,
+                        thresholds=(1e9, 10.0, 8.0, 6.0), lm_iters: int = 6,
+                        solver: str = "direct"):
+    """Level 1 without the IMU chains (pose-only): attitude, binary-plane
+    and DD rows, one annealing stage per threshold. Returns (p, q,
+    per-stage costs)."""
+    _check_level1_solver(solver)
+    plan = assembly_plan(prob, cfg.estimator.search_range + 1)
+    p, q = prob.p_odo, prob.q_odo
+    costs = []
+    for th in thresholds:
+        p, q, cost = _sms1_solve_once(cfg, prob, sms, p, q, th, lm_iters, plan)
+        costs.append(float(cost))
+    return p, q, costs
+
+
+class ImuChainData(NamedTuple):
+    """Preintegrated IMU edges k → k + 1 for level 1's chains (ImuFactor
+    rows, Estimator.cpp:2992-3001; edge k uses the interval that ends at
+    keyframe k + 1)."""
+    pres: object                # imu.Preintegrated, leading dim (T-1,)
+    sqrt_info: torch.Tensor     # (T-1, 15, 15)
+    valid: torch.Tensor         # (T-1,) bool
+
+
+def _imu_params(cfg):
+    from ..factors import imu as imu_factors
+    c = cfg.imu
+    return imu_factors.ImuParams(c.acc_n, c.gyr_n, c.acc_w, c.gyr_w, c.gravity)
+
+
+def build_imu_chain(cfg, imu_acc, imu_gyr, imu_dt, imu_valid, *, device) -> ImuChainData:
+    """Preintegrate every keyframe interval at zero bias, as the reference's
+    batch reuses the window's ``pre_integrations`` (the factor's
+    first-order bias correction absorbs the batch's bias updates).
+
+    Args are the episode's per-interval buffers (T, NI, ...); interval 0,
+    before the first keyframe, is skipped, and each interval's midpoint
+    pair is seeded with its own first sample (the reference seeds with the
+    sample at the keyframe: at 100 Hz, one sub-sample of lever). The JAX
+    package's optional seeds and bias points, which no caller passes, are
+    not ported.
+    """
+    from ..factors import imu as imu_factors
+    dev = torch.device(device)
+    f = lambda a: torch.as_tensor(np.asarray(a, float), dtype=F64, device=dev)
+    acc, gyr, dt = f(imu_acc)[1:], f(imu_gyr)[1:], f(imu_dt)[1:]
+    val = torch.as_tensor(np.asarray(imu_valid), device=dev).to(torch.bool)[1:]
+    zero = torch.zeros((acc.shape[0], 3), dtype=F64, device=dev)
+    pres = imu_factors.preintegrate(acc, gyr, dt, val, zero, zero, acc[:, 0], gyr[:, 0],
+                                    _imu_params(cfg).noise_cov(dev))
+    return ImuChainData(pres=pres, sqrt_info=imu_factors.sqrt_info(pres),
+                        valid=torch.any(val, dim=1))
+
+
+def _retract15(p, q, v, ba, bg, dx):
+    d = dx.reshape(p.shape[0], STATE15)
+    return (p + d[:, 0:3], quat.normalize(quat.mul(q, quat.exp(d[:, 3:6]))),
+            v + d[:, 6:9], ba + d[:, 9:12], bg + d[:, 12:15])
+
+
+def _imu_chain_residuals_at(xi, xj, chain: ImuChainData, gravity):
+    """(T-1, 15) whitened IMU edge residuals between the states xi and xj,
+    each (p, q, v, ba, bg); zero on edges without samples."""
+    from ..factors import imu as imu_factors
+    r = imu_factors.whitened_residual_cached(chain.sqrt_info, chain.pres, *xi, *xj,
+                                             gravity=gravity)
+    return torch.where(chain.valid[:, None], r, torch.zeros_like(r))
+
+
+def _imu_chain_residuals(p, q, v, ba, bg, chain: ImuChainData, gravity):
+    x = (p, q, v, ba, bg)
+    return _imu_chain_residuals_at(tuple(a[:-1] for a in x), tuple(a[1:] for a in x),
+                                   chain, gravity)
+
+
+def _imu_chain_jacobians(p, q, v, ba, bg, chain: ImuChainData, gravity):
+    """Every edge's whitened residual (T-1, 15) and its Jacobians (T-1, 15,
+    15) with respect to the tangents of keyframes k and k + 1.
+
+    One forward-mode pass over a single 30-vector tangent added to every
+    edge's (k, k + 1) states: edge k's residual depends only on its own
+    copy, so the (T-1, 15, 30) result holds each edge's Jacobian. The
+    perturbation is the JAX package's (q·exp(δθ), not renormalized).
+    """
+    x = (p, q, v, ba, bg)
+
+    def perturb(s, d):
+        return (s[0] + d[0:3], quat.mul(s[1], quat.exp(d[3:6])), s[2] + d[6:9],
+                s[3] + d[9:12], s[4] + d[12:15])
+
+    def edges(delta):
+        r = _imu_chain_residuals_at(perturb(tuple(a[:-1] for a in x), delta[:STATE15]),
+                                    perturb(tuple(a[1:] for a in x), delta[STATE15:]),
+                                    chain, gravity)
+        return r, r
+
+    zero = torch.zeros(2 * STATE15, dtype=F64, device=p.device)
+    J, res = torch.func.jacfwd(edges, has_aux=True)(zero)
+    return res, J[..., :STATE15], J[..., STATE15:]
+
+
+def _sms1_imu_cost(p, q, v, ba, bg, prob, sms, chain, threshold, gravity):
+    r_imu = _imu_chain_residuals(p, q, v, ba, bg, chain, gravity)
+    return _sms1_cost(p, q, prob, sms, threshold) + 0.5 * torch.sum(r_imu * r_imu)
+
+
+def _sms1_imu_system(p, q, v, ba, bg, prob, sms, chain, threshold, hw, plan, imu_plan,
+                     gravity):
+    """The 15-dof band (T, 2hw+1, 15, 15) and gradient (T, 15): the pose
+    rows in the [0:6, 0:6] corner of each block, the IMU edges over the
+    full blocks of the first off-diagonal."""
+    T = p.shape[0]
+    band6, grad6 = _assemble_sms1_pose(p, q, prob, sms, threshold, hw, plan)
+    band = torch.zeros((T, 2 * hw + 1, STATE15, STATE15), dtype=F64, device=p.device)
+    band[:, :, :POSE_DOF, :POSE_DOF] = band6
+    grad = torch.zeros((T, STATE15), dtype=F64, device=p.device)
+    grad[:, :POSE_DOF] = grad6
+    res, Ji, Jj = _imu_chain_jacobians(p, q, v, ba, bg, chain, gravity)
+    _scatter_pair(band, grad, Ji, Jj, res, imu_plan)
+    return band, grad
+
+
+def imu_chain_plan(T: int, hw: int, device) -> tuple:
+    """Scatter plans of the IMU edges (k, k + 1)."""
+    k = np.arange(T - 1)
+    return pair_plans(k, k + 1, hw, device)
+
+
+def _sms1_imu_solve_once(cfg, prob, sms, chain, state, threshold, lm_iters: int,
+                         plan, imu_plan):
+    """One annealing stage of the 15-dof level-1 solve. ``state`` is
+    (p, q, v, ba, bg); returns (p, q, v, ba, bg, cost), no host sync."""
+    hw = cfg.estimator.search_range + 1
+    gravity = _imu_params(cfg).gravity_vec(prob.p_odo.device)
+    lam = torch.tensor(1e-4, dtype=F64, device=prob.p_odo.device)
+    cost = _sms1_imu_cost(*state, prob, sms, chain, threshold, gravity)
+    for _ in range(lm_iters):
+        band, grad = _sms1_imu_system(*state, prob, sms, chain, threshold, hw, plan,
+                                      imu_plan, gravity)
+        _damp(band, lam, hw)
+        new = _retract15(*state, banded.cyclic_reduction_solve(band, -grad).reshape(-1))
+        new_cost = _sms1_imu_cost(*new, prob, sms, chain, threshold, gravity)
+        better = new_cost < cost
+        state = tuple(torch.where(better, a, b) for a, b in zip(new, state))
+        cost = torch.where(better, new_cost, cost)
+        lam = torch.clamp(torch.where(better, lam * 0.3, lam * 5.0), 1e-9, 1e6)
+    return (*state, cost)
+
+
+def initial_velocity(prob: BatchProblem):
+    """Central differences of the odometry over the median keyframe spacing
+    (the reference carries the window's speed states into the batch)."""
+    return torch.gradient(prob.p_odo, dim=0)[0] / torch.clamp(prob.kf_dt, min=1e-3)
+
+
+def optimize_batch_sms1_imu(cfg, prob: BatchProblem, sms: Sms1Data, chain: ImuChainData,
+                            v0=None, thresholds=(1e9, 10.0, 8.0, 6.0), lm_iters: int = 6,
+                            solver: str = "direct"):
+    """The reference's level 1 (Estimator.cpp:2990-3077): IMU chains,
+    binary planes, relative attitude and DD pseudoranges over 15-dof
+    keyframe states, one block-banded system with 15×15 blocks, one
+    annealing stage per threshold. The velocities start at ``v0`` (T, 3),
+    or at differences of the odometry; the biases at zero. Returns (p, q,
+    v, ba, bg, per-stage costs); the cost is read to the host once per
+    stage."""
+    _check_level1_solver(solver)
+    T = prob.p_odo.shape[0]
+    dev = prob.p_odo.device
+    hw = cfg.estimator.search_range + 1
+    plan = assembly_plan(prob, hw)
+    imu_plan = imu_chain_plan(T, hw, dev)
+    v = (initial_velocity(prob) if v0 is None
+         else torch.as_tensor(np.asarray(v0, float), dtype=F64, device=dev))
+    zeros = torch.zeros((T, 3), dtype=F64, device=dev)
+    state = (prob.p_odo, prob.q_odo, v, zeros, zeros)
+    costs = []
+    for th in thresholds:
+        *state, cost = _sms1_imu_solve_once(cfg, prob, sms, chain, tuple(state), th,
+                                            lm_iters, plan, imu_plan)
+        costs.append(float(cost))
+    return (*state, costs)

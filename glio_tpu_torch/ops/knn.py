@@ -5,6 +5,13 @@ the Pallas kernel ``glio_tpu.ops.knn_pallas``, a drop-in for it). On a CUDA
 tensor it launches the kernel, or raises; on a CPU tensor it runs
 ``knn_reference``. Nothing falls back from one to the other.
 
+``knn_pairs`` runs a batch of such problems over one stack of equal-sized
+clouds, pair b querying frame ``i_idx[b]`` against the map of frame
+``j_idx[b]`` (batch level 1's keyframe pairs), in one launch of the same
+kernel; a batch takes the grid's y dimension, so at most 65,535 pairs go
+in a call and more are refused. ``knn_pairs_reference`` is
+``knn_reference`` applied pair by pair.
+
 ``knn_plan`` sizes the kernel's launch on the host: how many blocks of a
 cluster share each 16-query tile and how the map is split between them
 (``knn_splits`` lists the resulting map ranges). Both are plain integer
@@ -94,7 +101,8 @@ def split_size(n_points: int, cluster: int) -> int:
     return min(n_points, -(-n_points // (4 * cluster)) * 4)
 
 
-def knn_plan(n_query: int, n_points: int, sm_count: int) -> tuple[int, int, int]:
+def knn_plan(n_query: int, n_points: int, sm_count: int,
+             batch: int = 1) -> tuple[int, int, int]:
     """The kernel's launch: ``(queries_per_block, cluster_size, points_per_split)``.
 
     Each tile of ``TILE_QUERIES`` queries is served by a cluster of
@@ -102,13 +110,14 @@ def knn_plan(n_query: int, n_points: int, sm_count: int) -> tuple[int, int, int]
     ``[r * points_per_split, (r + 1) * points_per_split)``, clipped to
     ``n_points``. Every split costs each query a fresh top-k warm-up, so the
     plan takes the fewest splits that give every SM a block, at most 8
-    (``split_size`` sizes them). Raises ``ValueError`` for sizes the
-    kernel's int32 indexing cannot hold. A plain tuple, as this runs on
-    every launch.
+    (``split_size`` sizes them); the tiles of all ``batch`` problems of a
+    launch count, so a real batch runs clusters of one block. Raises
+    ``ValueError`` for sizes the kernel's int32 indexing cannot hold. A
+    plain tuple, as this runs on every launch.
     """
     if 3 * n_query >= 2**31 or 3 * n_points >= 2**31:
         raise ValueError("knn: sizes beyond the kernel's int32 indexing")
-    tiles = -(-n_query // TILE_QUERIES)
+    tiles = batch * -(-n_query // TILE_QUERIES)
     cluster = next((c for c in CLUSTER_SIZES if tiles * c >= sm_count), CLUSTER_SIZES[-1])
     return TILE_QUERIES, cluster, split_size(n_points, cluster)
 
@@ -125,11 +134,11 @@ def knn_splits(n_points: int, plan: tuple[int, int, int]) -> list[tuple[int, int
 
 
 @functools.cache
-def _library():
-    fn = _build.load("knn.cu").glio_knn5_f32
+def _library(entry: str = "glio_knn5_f32", n_args: int = 11):
+    fn = getattr(_build.load("knn.cu"), entry)
     # Every argument is a pointer or a size_t, 64 bits on the card's hosts;
     # ctypes converts a Python int fastest as c_void_p.
-    fn.argtypes = [ctypes.c_void_p] * 11
+    fn.argtypes = [ctypes.c_void_p] * n_args
     fn.restype = ctypes.c_int
     return fn
 
@@ -163,3 +172,82 @@ def knn(query, query_valid, points, points_valid, k: int = 5):
 
 
 knn.launches = 0
+
+
+# --- a batch of problems over one stack of clouds --------------------------------
+
+MAX_PAIRS = 65535     # the grid's y dimension
+
+
+def _check_pairs(world, world_valid, i_idx, j_idx):
+    dev = world.device
+    for name, t, dtype, ndim in (("world", world, torch.float32, 3),
+                                 ("world_valid", world_valid, torch.bool, 2),
+                                 ("i_idx", i_idx, torch.int64, 1),
+                                 ("j_idx", j_idx, torch.int64, 1)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"knn_pairs: {name} must be a tensor")
+        if t.device != dev:
+            raise ValueError(f"knn_pairs: {name} is on {t.device}, world on {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"knn_pairs: {name} must be {dtype}, got {t.dtype}")
+        if t.dim() != ndim:
+            raise ValueError(f"knn_pairs: {name} must be {ndim}-D, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"knn_pairs: {name} must be contiguous")
+    if world.shape[2] != 3 or world_valid.shape != world.shape[:2]:
+        raise ValueError("knn_pairs: world must be (F, S, 3) and world_valid (F, S)")
+    if i_idx.shape != j_idx.shape:
+        raise ValueError("knn_pairs: i_idx and j_idx differ in length")
+    if i_idx.shape[0] > MAX_PAIRS:
+        raise ValueError(f"knn_pairs: {i_idx.shape[0]} pairs, at most {MAX_PAIRS} in a call")
+
+
+def knn_pairs_reference(world, world_valid, i_idx, j_idx, k: int = 5):
+    """``knn_reference`` of each pair: frame ``i_idx[b]``'s points against
+    frame ``j_idx[b]``'s, once for each distinct pair. Returns (B, S, k)
+    f32 and (B, S, k) int64."""
+    S = world.shape[1]
+    pairs, inverse = torch.unique(torch.stack([i_idx, j_idx]), dim=1, return_inverse=True)
+    out_d = torch.empty((pairs.shape[1], S, k), dtype=torch.float32, device=world.device)
+    out_i = torch.empty((pairs.shape[1], S, k), dtype=torch.int64, device=world.device)
+    for b, (i, j) in enumerate(pairs.t().tolist()):
+        out_d[b], out_i[b] = knn_reference(world[i], world_valid[i], world[j],
+                                           world_valid[j], k)
+    return out_d[inverse], out_i[inverse]
+
+
+def knn_pairs(world, world_valid, i_idx, j_idx, k: int = 5):
+    """k nearest valid points of frame ``j_idx[b]`` for each valid point of
+    frame ``i_idx[b]``, for every pair b.
+
+    Args: world (F, S, 3) f32 and world_valid (F, S) bool, every frame's
+    cloud; i_idx, j_idx (B,) int64 frame indices in [0, F), B at most
+    ``MAX_PAIRS``; contiguous, on one device. Returns (d2, idx): (B, S, k)
+    f32 and (B, S, k) int64, indices into frame ``j_idx[b]``'s points, with
+    ``knn``'s contract. On the card, one kernel launch; an index out of
+    range is a device-side fault.
+    """
+    _check_pairs(world, world_valid, i_idx, j_idx)
+    if not world.is_cuda:
+        if world.device.type == "cpu":
+            return knn_pairs_reference(world, world_valid, i_idx, j_idx, k)
+        raise ValueError(f"knn_pairs: no kernel for device {world.device}")
+    if k != K_SUPPORTED:
+        raise ValueError(f"knn_pairs: the CUDA kernel is built for k={K_SUPPORTED}, got k={k}")
+    (F, S, _), B = world.shape, i_idx.shape[0]
+    dev = world.device
+    out_d = torch.empty((B, S, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, S, k), dtype=torch.int64, device=dev)
+    if S == 0 or B == 0:
+        return out_d, out_i
+    index = world.get_device()
+    _, cluster, split = knn_plan(S, S, _launch.sm_count(index), batch=B)
+    _launch.launch("knn_pairs", _library("glio_knn5_pairs_f32", 12), index, world.data_ptr(),
+                   world_valid.data_ptr(), i_idx.data_ptr(), j_idx.data_ptr(), F, S, B, cluster,
+                   split, out_d.data_ptr(), out_i.data_ptr())
+    knn_pairs.launches += 1
+    return out_d, out_i
+
+
+knn_pairs.launches = 0

@@ -16,8 +16,10 @@ adds the formal and the calibrated marginal covariances. Not ported yet,
 and refused with ``NotImplementedError`` before anything runs: stage 3 (the
 loosely-coupled fusion; ``run_lc=None`` turns it on whenever the episode
 has GNSS, as in JAX, so pass ``run_lc=False``), loop closure, dense
-frames, ``save_pcd``, backend fusion (``backend_fusion_every > 0``), batch
-level 1 and Doppler rows in the batch.
+frames, ``save_pcd``, backend fusion (``backend_fusion_every > 0``) and
+Doppler rows in the batch. With ``sms_fusion_level=1`` stage 2 runs the
+reference's level 1: binary scan-to-multiscan planes associated at the
+stage-1 trajectory, and IMU chains over 15-dof keyframe states.
 """
 
 import os
@@ -80,8 +82,6 @@ def _refuse_unported(ep: Episode, cfg: GlioConfig, run_batch: bool, run_lc: bool
                                   "is not ported yet")
     if est.save_pcd:
         raise NotImplementedError("save_pcd: the map export is not ported yet")
-    if run_batch and est.sms_fusion_level == 1:
-        raise NotImplementedError("sms_fusion_level=1: batch level 1 is not ported yet")
     if run_batch and est.doppler_in_batch:
         raise NotImplementedError("doppler_in_batch: Doppler rows in the batch "
                                   "stage are not ported yet")
@@ -143,8 +143,17 @@ def run_pipeline(ep: Episode, cfg: GlioConfig = GlioConfig(),
     if run_batch:
         prob = batch_mod.build_problem(cfg, p_sw, q_sw, res.kf_time, ep.gnss,
                                        anchor, yaw, station, device=device)
-        p_b, q_b, _ = batch_mod.optimize_batch(cfg, prob,
-                                               solver=cfg.estimator.batch_solver)
+        if cfg.estimator.sms_fusion_level == 1:
+            # The reference's level 1 (Estimator.cpp:2990-3077), associated at
+            # the stage-1 trajectory as in the JAX package.
+            sms = batch_mod.build_sms1(cfg, ep.scan, ep.scan_valid, p_sw, q_sw,
+                                       device=device)
+            chain = batch_mod.build_imu_chain(cfg, ep.imu_acc, ep.imu_gyr, ep.imu_dt,
+                                              ep.imu_valid, device=device)
+            p_b, q_b, *_ = batch_mod.optimize_batch_sms1_imu(cfg, prob, sms, chain)
+        else:
+            p_b, q_b, _ = batch_mod.optimize_batch(cfg, prob,
+                                                   solver=cfg.estimator.batch_solver)
         res.p_batch = p_b.cpu().numpy()
         res.q_batch = q_b.cpu().numpy()
         cov = batch_mod.batch_marginal_covariance(cfg, prob, p_b, q_b)

@@ -1,9 +1,11 @@
 """Inputs and timing shared by the port's checks on the card.
 
 ``chip_smoke.py``, ``tests/test_torch_cuda.py`` and
-``scripts/bench_torch_knn.py`` draw their 5-NN inputs from here and time
-kernels with ``time_device_ms``, so the three agree on what a case and a
-time are. Nothing on an estimation path imports this module.
+``scripts/bench_torch_knn.py`` draw their 5-NN inputs from here (single
+problems in ``KNN_CASES``, batches of keyframe pairs in ``KNN_PAIR_CASES``)
+and time kernels with ``time_device_ms``, so the three agree on what a case
+and a time are; ``selected_indices`` names the points level 1's
+correspondences hold. Nothing on an estimation path imports this module.
 """
 
 import statistics
@@ -65,6 +67,54 @@ KNN_CASES = {
 }
 
 
+def pair_stack(rng, frames, n, valid_share=0.9):
+    """``frames`` clouds of ``n`` points each, as batch level 1 stacks its
+    keyframes' world points: (F, n, 3) f32 and (F, n) bool."""
+    pts, valid = cloud(rng, frames * n, valid_share, spread=20.0)
+    return pts.reshape(frames, n, 3), valid.reshape(frames, n)
+
+
+def random_pairs(rng, frames, count):
+    """``count`` (i, j) frame pairs, int64."""
+    return (rng.integers(0, frames, count).astype(np.int64),
+            rng.integers(0, frames, count).astype(np.int64))
+
+
+def _all_invalid_frame(r):
+    world, valid = pair_stack(r, 8, 1024)
+    valid[3] = False
+    i, j = random_pairs(r, 8, 64)
+    j[::4] = 3                               # every fourth map empty
+    i[1::8] = 3                              # and some queries all invalid
+    return world, valid, i, j
+
+
+# name: rng -> (world, world_valid, i_idx, j_idx) for ops.knn.knn_pairs:
+# batched problems over one stack of clouds, each in one launch. The
+# cluster sizes are knn_plan's on a 132-SM H100.
+KNN_PAIR_CASES = {
+    # Level 1's shape: 1024-point keyframes, a batch of pairs (1 block).
+    "pairs_256x1024": lambda r: (*pair_stack(r, 40, 1024), *random_pairs(r, 40, 256)),
+    "map_all_invalid": _all_invalid_frame,
+    # S = 1000: a ragged last tile, frames not 16-byte aligned.
+    "ragged_1000": lambda r: (*pair_stack(r, 10, 1000), *random_pairs(r, 10, 64)),
+    "ragged_1001": lambda r: (*pair_stack(r, 10, 1001), *random_pairs(r, 10, 64)),
+    # One pair (cluster of 4, the map split) and two (cluster of 2).
+    "one_pair": lambda r: (*pair_stack(r, 3, 1024), *random_pairs(r, 3, 1)),
+    "two_pairs": lambda r: (*pair_stack(r, 3, 1024), *random_pairs(r, 3, 2)),
+    # The most pairs a call takes, every row of the grid: 16-point frames.
+    "max_pairs_65535": lambda r: (*pair_stack(r, 8, 16), *random_pairs(r, 8, 65535)),
+}
+
+
+def knn_pairs_bound_ms(world_valid, i_idx, j_idx, sms, clock_mhz):
+    """``knn_bound_ms`` summed over a batch of pairs: each pair's valid
+    queries times its valid map points, at 8 FP32 operations each."""
+    n = world_valid.sum(dim=1).to(torch.float64)
+    pairs = float(torch.sum(n[i_idx] * n[j_idx]))
+    return 8 * pairs / (sms * 128 * clock_mhz * 1e6) * 1e3
+
+
 def time_device_ms(fn, reps=20):
     """Median of ``reps`` single calls of ``fn``, in ms, by CUDA events,
     after one warm-up. Each call is queued behind a ~50 us device sleep, so
@@ -98,3 +148,19 @@ def knn_bound_ms(query_valid, points_valid, sms, clock_mhz):
     per cycle on sms x 128 lanes; bytes (< 1 MB) are far below it."""
     pairs = int(query_valid.sum()) * int(points_valid.sum())
     return 8 * pairs / (sms * 128 * clock_mhz * 1e6) * 1e3
+
+
+def selected_indices(scans, pts_i, mask):
+    """(T, R, F) uint16: the index in scan i of the point each slot of
+    frame i holds (the first of equal points), 0xFFFF where the slot is
+    empty; level 1's correspondences store the point, not its index.
+    numpy in, numpy out."""
+    scans = np.asarray(scans, np.float32).astype(np.float64)
+    pts_i, mask = np.asarray(pts_i), np.asarray(mask)
+    out = np.full(mask.shape, 0xFFFF, np.uint16)
+    for i in range(mask.shape[0]):
+        eq = np.all(pts_i[i][:, :, None, :] == scans[i][None, None], -1)   # (R, F, S)
+        if not (eq.any(-1) | ~mask[i]).all():
+            raise ValueError(f"frame {i}: a slot holds no point of its scan")
+        out[i] = np.where(mask[i], eq.argmax(-1), 0xFFFF)
+    return out

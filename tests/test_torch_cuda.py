@@ -1,6 +1,7 @@
-"""The port's CUDA path on the card: the k-NN and copy kernels against their
-plain versions, bit for bit, the probe, and the replay and the batch stage
-on the card against the same code on the CPU.
+"""The port's CUDA path on the card: the k-NN kernel (single problems and
+batches of keyframe pairs) and the copy kernel against their plain
+versions, bit for bit, the probe, and the replay, the batch stage and batch
+level 1 on the card against the same code on the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 no jax, so it runs on a machine that has only torch:
@@ -10,20 +11,22 @@ no jax, so it runs on a machine that has only torch:
 (``--noconftest`` because ``tests/conftest.py`` sets up jax.)
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from glio_tpu_torch.config import EstimatorConfig, GlioConfig, ShapeConfig
-from glio_tpu_torch.data.simulator import (drifted_trajectory, simulate_episode,
-                                           simulate_gnss_epochs)
+from glio_tpu_torch.data.simulator import (drifted_trajectory, random_walk_odometry,
+                                           simulate_episode, simulate_gnss_epochs)
 from glio_tpu_torch.lidar import neighbors
 from glio_tpu_torch.models import batch
 from glio_tpu_torch.models.sliding_window import SlidingWindowEstimator
 from glio_tpu_torch.ops import knn as knn_mod
 from glio_tpu_torch.ops import probe
 from glio_tpu_torch.solver import banded
-from glio_tpu_torch.testing import KNN_CASES, cloud
+from glio_tpu_torch.testing import KNN_CASES, KNN_PAIR_CASES, cloud
 
 pytestmark = pytest.mark.cuda
 F32 = np.float32
@@ -198,3 +201,76 @@ def test_cyclic_reduction_on_card_matches_cpu(cuda):
     assert (x_g - x_c).abs().max() <= 1e-10 * x_c.abs().max()
     r = banded.band_matvec(torch.tensor(band), x_g) - torch.tensor(b)
     assert r.abs().max() < 1e-9
+
+
+@pytest.mark.parametrize("case", sorted(KNN_PAIR_CASES))
+def test_knn_pairs_kernel_equals_plain_version(cuda, case):
+    args = [torch.tensor(a, device=cuda) for a in KNN_PAIR_CASES[case](np.random.default_rng(0))]
+    before = knn_mod.knn_pairs.launches
+    d_k, i_k = knn_mod.knn_pairs(*args)
+    d_r, i_r = knn_mod.knn_pairs_reference(*args)
+    torch.cuda.synchronize()
+    assert knn_mod.knn_pairs.launches == before + 1
+    assert torch.equal(i_k, i_r)
+    assert torch.equal(d_k, d_r)
+
+
+def test_knn_pairs_launches_on_the_current_stream(cuda):
+    src = [torch.tensor(a, device=cuda)
+           for a in KNN_PAIR_CASES["pairs_256x1024"](np.random.default_rng(0))]
+    d_r, i_r = knn_mod.knn_pairs_reference(*src)
+    args = [torch.zeros_like(a) for a in src]
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        for a, s in zip(args, src):
+            a.copy_(s)
+        d_k, i_k = knn_mod.knn_pairs(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(i_k, i_r) and torch.equal(d_k, d_r)
+
+
+def _level1_scenario(T, seed=4):
+    cfg = GlioConfig()
+    cfg = cfg.replace(estimator=dataclasses.replace(cfg.estimator, sms_fusion_level=1))
+    ep = simulate_episode(n_keyframes=T, scan_points=1024, seed=seed)
+    anchor = np.asarray(cfg.initialization.anc_ecef)
+    station = np.asarray(cfg.initialization.station_ecef)
+    gnss = simulate_gnss_epochs(ep.gt_p, ep.kf_time, anchor, station, psr_noise=0.5,
+                                epoch_stride=3, seed=seed)
+    p_odo = random_walk_odometry(ep.gt_p, seed)
+    return cfg, ep, gnss, p_odo, anchor, station
+
+
+def test_build_sms1_on_card_equals_cpu(cuda):
+    """The kNN is bit for bit the plain version, and the plane fits sum in a
+    fixed order and solve their eigensystems by elementwise Jacobi
+    rotations: the card's association is the CPU's, bit for bit."""
+    cfg, ep, _, p_odo, _, _ = _level1_scenario(40)
+    g, c = (batch.build_sms1(cfg, ep.scan, ep.scan_valid, p_odo, ep.gt_q, device=dev)
+            for dev in (cuda, "cpu"))
+    assert int(c.mask.sum()) > 1000
+    for f in batch.Sms1Data._fields:
+        assert torch.equal(getattr(g, f).cpu(), getattr(c, f)), f
+
+
+def test_level1_solve_on_card_is_deterministic_and_matches_cpu(cuda):
+    """T = 300, the card's association handed to both devices: two solves
+    on the card agree bit for bit, the card and the CPU to 3e-4 m and their
+    costs to 5e-7 relative, the level-0 test's bounds."""
+    cfg, ep, gnss, p_odo, anchor, station = _level1_scenario(300)
+    sms = batch.build_sms1(cfg, ep.scan, ep.scan_valid, p_odo, ep.gt_q, device=cuda)
+    outs = []
+    for dev in (cuda, cuda, "cpu"):
+        prob = batch.build_problem(cfg, p_odo, ep.gt_q, ep.kf_time, gnss, anchor, 0.0, station,
+                                   device=dev)
+        chain = batch.build_imu_chain(cfg, ep.imu_acc, ep.imu_gyr, ep.imu_dt, ep.imu_valid,
+                                      device=dev)
+        sms_d = batch.Sms1Data(*(a.to(dev) for a in sms))
+        outs.append(batch.optimize_batch_sms1_imu(cfg, prob, sms_d, chain))
+    (g1, g2, c) = outs
+    assert all(torch.equal(a, b) for a, b in zip(g1[:5], g2[:5])) and g1[5] == g2[5]
+    assert all(bool(torch.isfinite(a).all()) for a in g1[:5])
+    np.testing.assert_allclose(g1[0].cpu().numpy(), c[0].numpy(), rtol=0, atol=3e-4)
+    np.testing.assert_allclose(g1[5], c[5], rtol=5e-7)

@@ -124,7 +124,7 @@ def _with(cfg, **kw):
 
 @pytest.mark.parametrize("case", ["run_lc_default", "run_lc_true", "loop_closure",
                                   "save_pcd", "dense_frames", "backend_fusion",
-                                  "sms_level_1", "doppler_in_batch"])
+                                  "doppler_in_batch"])
 def test_unported_options_raise_before_running(case):
     ep = _port_episode()
     cfg, kw = TCFG, dict(run_lc=False)
@@ -140,8 +140,6 @@ def test_unported_options_raise_before_running(case):
         ep.dense_rel_dp = np.zeros((5, 3, 3))
     elif case == "backend_fusion":
         kw["backend_fusion_every"] = 3
-    elif case == "sms_level_1":
-        cfg = _with(TCFG, sms_fusion_level=1)
     else:
         cfg = _with(TCFG, doppler_in_batch=True)
     with pytest.raises(NotImplementedError):
