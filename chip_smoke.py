@@ -4,9 +4,10 @@
 
 Drives ``glio_tpu_torch``'s paths on ``cuda:0`` at full size and checks
 them: the sliding-window replay at the ``bench.py`` shapes, the toolchain
-probe, the batch stage at the UrbanNav Whampoa length, levels 0 and 1, and
-``run_pipeline`` (stage 1 then stage 2, at each level). Phases, each of
-which raises on failure:
+probe, the batch stage at the UrbanNav Whampoa length, levels 0 and 1,
+``run_pipeline`` (stages 1-3, at each level), stage 3 at the Whampoa
+length, backend fusion, loop closure, and the dense frames and map export.
+Phases, each of which raises on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``); CUDA must be
    available, there is no CPU mode; TF32 off;
@@ -53,12 +54,15 @@ which raises on failure:
    f64 floor: near convergence the LM accepts or rejects steps of up to
    ~3e-5 m on cost differences of ~1e-8 in 1494, the cost's own rounding,
    so a 1e-9 m nudge of the odometry moves JAX's f64 result by 3.0e-5 m;
-7. pipeline: ``run_pipeline(run_lc=False)`` on the 15-keyframe
+7. pipeline: ``run_pipeline`` (stages 1-3) on the 15-keyframe
    ``simulate_episode(seed=0)`` at the bench shapes with GNSS at every
    keyframe (``tests/data/pipeline_seed0.npz``): the kNN kernel must
    launch once per keyframe, n_lidar_factors must equal JAX's at every
    step, and ``tc_sw_result.csv`` / ``tc_batch_result.csv`` must match
-   JAX's rows (positions within the replay's 5e-3 m);
+   JAX's rows (positions within the replay's 5e-3 m), ``lc_result.csv``
+   within this run's stage-1 position and attitude differences times JAX's
+   gains from each to its stage 3 (``lc_*`` keys), plus 10x JAX's own
+   spread under a +-1e-9 m nudge of stage 1;
 8. batch level 1: ``simulate_episode(n_keyframes=3493, scan_points=1024,
    seed=4)`` with simulated GNSS every third keyframe and a random-walk
    odometry (``tests/data/sms1_T3493_seed4.npz``, made by
@@ -87,7 +91,32 @@ which raises on failure:
    stage-1 difference (``gain_p_per_m``, ``gain_ypr_per_m``), plus 10x JAX's
    own spread under a +-1e-9 m nudge of stage 1 (``nudge_dp``,
    ``nudge_ypr``); against JAX's mixed rows within that plus 10x JAX's
-   mixed-vs-f64 distance.
+   mixed-vs-f64 distance; ``lc_result.csv`` as in phase 7;
+10. stage 3 at T = 3493 on phase 6's drive and GNSS
+    (``tests/data/lc_T3493_seed4.npz``, made by
+    ``scripts/make_torch_stage3_fixture.py``): 1165 DD fixes in one
+    batched solve (ok masks equal, fixes within 10x JAX's spread under a
+    1e-8 m pseudorange nudge), the gate and association (the gated factors
+    equal), the LC solve twice (bit-identical; p, q within 10x JAX's
+    spread under the larger of that nudge and a 1e-9 m odometry nudge);
+    DD, gate and LC times and the RMSE to the truth;
+11. backend fusion at the bench shapes on the divergence scenario of
+    ``tests/test_pipeline_aux.py`` (48 keyframes,
+    ``tests/data/backend_fusion_w50_seed21.npz``): the kNN once per
+    keyframe, the reset decisions equal to JAX's (which are stable under
+    JAX's own +-1e-9 m nudges of p0), p within 10x JAX's nudge spread; ms
+    per keyframe, seconds per fusion solve;
+12. loop closure on a two-lap 132-keyframe circle of 1024-point scans
+    with injected drift (``tests/data/loop_closure_seed17.npz``):
+    ``apply_loop_closure`` with the kNN launched 3 times per candidate,
+    the candidates, accepted flags and edge count equal to JAX's, the
+    corrected chain within 10x JAX's spread under a 1e-5 m nudge (the f32
+    resolution of the world points); then the kernel against its plain
+    version bit for bit at the ICP's 1024 x 25,600, timed beside its FP32
+    bound and ``topk(cdist)``;
+13. dense frames (``interpolate_segments`` on a ``dense_frames=3`` drive)
+    and the map export (``assemble_map`` + ``write_pcd``) against
+    ``tests/data/dense_pcd_seed19.npz``.
 
 The batched 5-NN is also held to its plain version in phase 3, on
 ``glio_tpu_torch.testing.KNN_PAIR_CASES``, one launch each: an
@@ -99,7 +128,9 @@ The line before the last is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -113,19 +144,24 @@ import types
 import numpy as np
 import torch
 
+from glio_tpu_torch import pipeline
 from glio_tpu_torch.config import EstimatorConfig, GlioConfig, ShapeConfig
 from glio_tpu_torch.data.simulator import (drifted_trajectory, random_walk_odometry,
                                            simulate_episode, simulate_gnss_epochs)
+from glio_tpu_torch.eval import pointcloud
 from glio_tpu_torch.lidar import neighbors
 from glio_tpu_torch.models import batch as batch_mod
+from glio_tpu_torch.models import lc_fusion, local_graph, loop_closure
 from glio_tpu_torch.models.sliding_window import SlidingWindowEstimator
 from glio_tpu_torch.ops import _build
 from glio_tpu_torch.ops import knn as knn_mod
 from glio_tpu_torch.ops import probe as probe_mod
 from glio_tpu_torch.pipeline import run_pipeline
 from glio_tpu_torch.solver import banded
-from glio_tpu_torch.testing import (KNN_CASES, KNN_PAIR_CASES, cloud, gpu_clock_mhz,
-                                    knn_bound_ms, knn_pairs_bound_ms, time_device_ms)
+from glio_tpu_torch.testing import (KNN_CASES, KNN_PAIR_CASES, cloud, dense_episode,
+                                    divergence_episode, gpu_clock_mhz, knn_bound_ms,
+                                    knn_pairs_bound_ms, loop_episode, reset_decisions,
+                                    time_device_ms)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "data", "sw_replay_w50_seed0.npz")
@@ -133,12 +169,17 @@ BATCH_FIXTURE = os.path.join(ROOT, "tests", "data", "batch_T3493_seed4.npz")
 PIPE_FIXTURE = os.path.join(ROOT, "tests", "data", "pipeline_seed0.npz")
 SMS1_FIXTURE = os.path.join(ROOT, "tests", "data", "sms1_T3493_seed4.npz")
 PIPE_SMS1_FIXTURE = os.path.join(ROOT, "tests", "data", "pipeline_sms1_seed0.npz")
+LC_FIXTURE = os.path.join(ROOT, "tests", "data", "lc_T3493_seed4.npz")
+FUSION_FIXTURE = os.path.join(ROOT, "tests", "data", "backend_fusion_w50_seed21.npz")
+LOOP_FIXTURE = os.path.join(ROOT, "tests", "data", "loop_closure_seed17.npz")
+DENSE_FIXTURE = os.path.join(ROOT, "tests", "data", "dense_pcd_seed19.npz")
 SMS1_MASK_AGREE = 0.999       # share of association slots whose mask equals JAX's
 N_KEYFRAMES = 30
 P_TOL_M = 5e-3
 BATCH_F64_TOL_M = 3e-4        # 10x JAX f64's own spread under a 1e-9 m nudge
 BATCH_MIXED_TOL_M = 5e-3
 YPR_TOL_DEG = 0.05
+DENSE_TOL = 1e-8              # dense frames, m and quaternion units (CPU tests: 1e-8)
 M_PER_DEG_LAT = 111_320.0
 COPY_SWEEP = (   # name, elements of a buffer made on the card, first element copied
     ("probe_8x128", 8 * 128, 0),
@@ -743,18 +784,17 @@ def pipeline_phase(dev, level=0):
     ep.anchor_ecef = anchor
     with tempfile.TemporaryDirectory() as tmp:
         knn_mod.knn.launches = knn_mod.knn_pairs.launches = 0
-        run_s, res = _sync_s(lambda: run_pipeline(ep, cfg, out_dir=tmp, run_lc=False,
-                                                  device=dev))
+        run_s, res = _sync_s(lambda: run_pipeline(ep, cfg, out_dir=tmp, device=dev))
         launches, pair_launches = knn_mod.knn.launches, knn_mod.knn_pairs.launches
         rows = {name: np.loadtxt(os.path.join(tmp, name + ".csv"), delimiter=",", ndmin=2,
                                  skiprows=3 if name.endswith("cov") else 0)
-                for name in ("tc_sw_result", "tc_batch_result", "tc_batch_cov")}
+                for name in ("tc_sw_result", "tc_batch_result", "tc_batch_cov", "lc_result")}
     check(launches == n, f"knn kernel launched {launches} times in {n} keyframes")
     want_pairs = 0 if level == 0 else -(-sum(max(n - r - 1, 0) for r in range(
         cfg.estimator.search_range)) // batch_mod.SMS1_CHUNK)
     check(pair_launches == want_pairs,
           f"knn_pairs launched {pair_launches} times, level {level} says {want_pairs}")
-    for f in ("p_sw", "q_sw", "p_batch", "q_batch", "cov_batch", "cov_batch_cal"):
+    for f in ("p_sw", "q_sw", "p_batch", "q_batch", "cov_batch", "cov_batch_cal", "p_lc", "q_lc"):
         check(np.isfinite(getattr(res, f)).all(), f"pipeline {f} not finite")
     if level == 0:
         check(np.array_equal(res.n_lidar_factors, fx["n_lidar_factors"]),
@@ -768,12 +808,15 @@ def pipeline_phase(dev, level=0):
     # level-1 batch's, plus 10x JAX's own spread under a +-1e-9 m nudge of
     # stage 1. Against JAX's mixed-precision main path: that plus 10x JAX's
     # own mixed-versus-f64 distance on this episode (yaw/pitch/roll not
-    # held at level 0, where that distance reaches 10 deg).
+    # held at level 0, where that distance reaches 10 deg). Stage 3 starts
+    # from stage 1: within this run's stage-1 position and yaw/pitch/roll
+    # differences times JAX's gains from each to its stage 3's, plus 10x
+    # JAX's own spread under a +-1e-9 m nudge of stage 1 (``lc_*`` keys).
     jax_gap = np.abs(fx["tc_batch_result"][:, 9:12] - fx["tc_batch_result_f64"][:, 9:12]).max()
     jax_gap_ypr = _ypr_diff(fx["tc_batch_result"][:, 6:9], fx["tc_batch_result_f64"][:, 6:9])
     report = []
     for name, key in (("tc_sw_result", "tc_sw_result"), ("tc_batch_result", "tc_batch_result_f64"),
-                      ("tc_batch_result", "tc_batch_result")):
+                      ("tc_batch_result", "tc_batch_result"), ("lc_result", "lc_result")):
         got, want = rows[name], fx[key]
         check(got.shape == want.shape, f"{name}: {got.shape} rows, JAX {want.shape}")
         check(np.array_equal(got[:, :3], want[:, :3]), f"{name}: times differ")
@@ -783,7 +826,13 @@ def pipeline_phase(dev, level=0):
         d_ll = M_PER_DEG_LAT * np.abs(got[:, 3:5] - want[:, 3:5]).max()
         d_ypr = _ypr_diff(got[:, 6:9], want[:, 6:9])
         if key == "tc_sw_result":
-            tol, tol_ypr, d_sw = P_TOL_M, YPR_TOL_DEG, d_pos
+            tol, tol_ypr, d_sw, d_sw_ypr = P_TOL_M, YPR_TOL_DEG, d_pos, d_ypr
+        elif key == "lc_result":
+            tol = (float(fx["lc_gain_p_per_m"]) * d_sw + float(fx["lc_gain_p_per_deg"]) * d_sw_ypr
+                   + 10.0 * float(fx["lc_nudge_dp"]))
+            tol_ypr = (float(fx["lc_gain_ypr_per_m"]) * d_sw
+                       + float(fx["lc_gain_ypr_per_deg"]) * d_sw_ypr
+                       + 10.0 * float(fx["lc_nudge_ypr"]))
         elif key == "tc_batch_result_f64":
             tol, tol_ypr = (P_TOL_M, YPR_TOL_DEG) if level == 0 else (
                 float(fx["gain_p_per_m"]) * d_sw + 10.0 * float(fx["nudge_dp"]),
@@ -808,12 +857,264 @@ def pipeline_phase(dev, level=0):
         cov_want = fx["tc_batch_cov_f64"]
         d_std = (np.abs(cov_got[:, 1:] - cov_want[:, 1:]) / np.abs(cov_want[:, 1:])).max()
         cov_note = f"; tc_batch_cov stds vs f64 max rel diff {d_std:.3e}"
-    print(f"pipeline {n} keyframes, batch level {level} (stage 1 + stage 2 + covariances, CSVs "
+    print(f"pipeline {n} keyframes, batch level {level} (stages 1-3 + covariances, CSVs "
           f"written): {run_s:.2f} s; knn launches {launches}, knn_pairs launches "
           f"{pair_launches}")
     print(f"pipeline level {level} vs JAX: " + "; ".join(report) + cov_note
           + f"; JAX's own mixed-vs-f64 batch distance {jax_gap:.3e} m, {jax_gap_ypr:.3e} deg")
     return launches
+
+
+def _scenario(path, cfg, config_key="config_json"):
+    fx = np.load(path)
+    check(json.loads(str(fx[config_key])) == json.loads(json.dumps(dataclasses.asdict(cfg))),
+          f"{os.path.basename(path)} was made with another configuration")
+    return fx, json.loads(str(fx["scenario_json"]))
+
+
+def lc_phase(dev):
+    """Stage 3 at the Whampoa length on the card: every epoch's DD fix, the
+    gate and association, then the LC solve twice, against
+    ``tests/data/lc_T3493_seed4.npz``."""
+    cfg = GlioConfig()
+    fx, sc = _scenario(LC_FIXTURE, cfg)
+    anchor = np.asarray(cfg.initialization.anc_ecef)
+    station = np.asarray(cfg.initialization.station_ecef)
+    kf_time, p_true, q_true, p_odo = drifted_trajectory(sc["n_keyframes"], sc["max_drift"])
+    gnss = simulate_gnss_epochs(p_true, kf_time, anchor, station, psr_noise=sc["psr_noise"],
+                                epoch_stride=sc["epoch_stride"], seed=sc["seed"])
+    E = gnss.time.shape[0]
+    pipeline._dd_fixes(cfg, gnss, anchor, station, dev)          # warm-up
+    dd_s, (fix, _, ok, _) = _sync_s(lambda: pipeline._dd_fixes(cfg, gnss, anchor, station, dev))
+    ok = ok.cpu().numpy()
+    check(np.array_equal(ok, fx["ok"]), f"DD fix ok masks differ from JAX's ({int(ok.sum())} "
+                                        f"against {int(fx['ok'].sum())} of {E})")
+    d_fix = float(np.abs(fix.cpu().numpy() - fx["fixes"])[ok].max())
+    tol_fix = 10.0 * float(fx["nudge_fix"])
+    check(d_fix <= tol_fix, f"DD fixes: max |fix - JAX| {d_fix} m > {tol_fix} m")
+    ep = types.SimpleNamespace(kf_time=kf_time, gnss=gnss)
+    gate_s, (gnss_p, gnss_valid, gnss_sigma) = _sync_s(
+        lambda: pipeline.lc_fixes(cfg, ep.gnss, kf_time, anchor, 0.0, station, dev))
+    prob = lc_fusion.build_problem(p_odo, q_true, gnss_p, gnss_valid, gnss_sigma, device=dev)
+    check(np.array_equal(prob.gnss_valid.cpu().numpy(), fx["gnss_valid"]),
+          "the gated and spaced GNSS factors differ from JAX's")
+    p0 = torch.as_tensor(p_odo, device=dev)
+    q0 = torch.as_tensor(q_true, device=dev)
+    warm_s, (p1, q1, c1) = _sync_s(lambda: lc_fusion.solve(prob, p0, q0))
+    solve_s, (p2, q2, c2) = _sync_s(lambda: lc_fusion.solve(prob, p0, q0))
+    check(torch.equal(p1, p2) and torch.equal(q1, q2) and torch.equal(c1, c2),
+          "two LC solves on the card differ")
+    check(bool(torch.isfinite(p2).all() & torch.isfinite(q2).all()), "LC result not finite")
+    dp = float(np.abs(p2.cpu().numpy() - fx["p_lc"]).max())
+    dq = float(np.abs(q2.cpu().numpy() - fx["q_lc"]).max())
+    # 10x JAX's own spread under the larger of its two nudges: the
+    # odometry's, and the pseudoranges' (the fixes' own rounding carries
+    # into the chain).
+    tol_p = 10.0 * max(float(fx["nudge_dp"]), float(fx["nudge_fix_dp"]))
+    tol_q = 10.0 * max(float(fx["nudge_dq"]), float(fx["nudge_fix_dq"]))
+    check(dp <= tol_p and dq <= tol_q,
+          f"LC: max |p - JAX| {dp} m (tol {tol_p}), |q - JAX| {dq} (tol {tol_q})")
+    print(f"stage 3 T={sc['n_keyframes']}: {E} DD fixes in {1e3 * dd_s:.2f} ms "
+          f"({int(ok.sum())} ok, as JAX; max |fix - JAX| {d_fix:.3e} m, tol {tol_fix:.3e}); gate + "
+          f"association {1e3 * gate_s:.2f} ms; {int(gnss_valid.sum())} fixes gated in, "
+          f"{int(prob.gnss_valid.sum())} factors after the 5 m spacing (as JAX); LC solve "
+          f"(8 GN iterations, CR at hw 1) {1e3 * solve_s:.2f} ms (warm-up {1e3 * warm_s:.2f}), "
+          f"two runs bit-identical")
+    print(f"stage 3 vs JAX: max |dp| {dp:.3e} m (tol {tol_p:.3e}), max |dq| {dq:.3e} (tol "
+          f"{tol_q:.3e}); RMSE vs truth: odometry {_rmse(p_odo, p_true):.4f} m, LC "
+          f"{_rmse(p2, p_true):.4f} m (JAX {float(fx['rmse_lc']):.4f} m)")
+
+
+def fusion_phase(dev):
+    """Backend fusion at the bench shapes on the divergence scenario, against
+    ``tests/data/backend_fusion_w50_seed21.npz``. Returns the kNN launches."""
+    cfg = bench_config()
+    fx, sc = _scenario(FUSION_FIXTURE, cfg, "config_json_gated")
+    T = sc["n_keyframes"]
+    ep = divergence_episode(sc, simulate_episode)
+    anchor = np.asarray(cfg.initialization.anc_ecef)
+    station = np.asarray(cfg.initialization.station_ecef)
+    ep.gnss = simulate_gnss_epochs(ep.gt_p, ep.kf_time, anchor, station, psr_noise=0.5,
+                                   epoch_stride=sc["epoch_stride"], seed=sc["seed"])
+    fusion_s = []
+    window = pipeline._fusion_window
+
+    def timed_window(*args, **kw):
+        t, out = _sync_s(lambda: window(*args, **kw))
+        fusion_s.append(t)
+        return out
+
+    buf = io.StringIO()
+    pipeline._fusion_window = timed_window
+    try:
+        knn_mod.knn.launches = 0
+        with contextlib.redirect_stdout(buf):
+            run_s, (p, q) = _sync_s(lambda: pipeline.replay_with_backend_fusion(
+                cfg, ep, ep.to_inputs(dev), anchor, 0.0, station, every=sc["every"],
+                fusion_span=sc["fusion_span"], debug=True))
+        launches = knn_mod.knn.launches
+    finally:
+        pipeline._fusion_window = window
+    lines = buf.getvalue().splitlines()
+    # (The plain version on the CPU launches nothing: the CPU rehearsal.)
+    check(dev.type != "cuda" or launches == T,
+          f"knn launched {launches} times in {T} keyframes of backend fusion")
+    check(np.isfinite(p).all() and np.isfinite(q).all(), "backend fusion output not finite")
+    got, want = reset_decisions(lines), reset_decisions(json.loads(str(fx["lines_gated"])))
+    err = np.linalg.norm(p - ep.gt_p, axis=-1)
+    err_j = np.linalg.norm(fx["p_gated"] - ep.gt_p, axis=-1)
+    if bool(fx["decisions_stable"]):
+        check(got == want, f"reset decisions {got} != JAX's {want}")
+        gate = "equal to JAX's (stable under JAX's own +-1e-9 m nudges of p0)"
+    else:
+        check(err[-8:].min() < 6.0, f"no re-lock in the last 8 keyframes: {err[-8:]}")
+        gate = f"JAX's {want} are not stable under nudges: phase-robust criteria held"
+    dp = float(np.abs(p - fx["p_gated"]).max())
+    tol = 10.0 * float(fx["nudge_dp"])
+    check(dp <= tol, f"backend fusion: max |p - JAX| {dp} m > {tol} m")
+    replay_s = run_s - sum(fusion_s)
+    print(f"backend fusion {T} keyframes (every {sc['every']}, span {sc['fusion_span']}, bench "
+          f"shapes): {1e3 * run_s / T:.1f} ms per keyframe ({run_s:.2f} s; "
+          f"{len(fusion_s)} fusion solves, {statistics.mean(fusion_s):.3f} s each, "
+          f"{sum(fusion_s):.2f} s in all; the rest {1e3 * replay_s / T:.1f} ms per keyframe); "
+          f"knn launches {launches}")
+    print(f"backend fusion resets {got}: {gate}; max |p - JAX| {dp:.3e} m (tol {tol:.3e}: 10x "
+          f"JAX's own nudge spread); error vs truth, last 8 keyframes: mean {err[-8:].mean():.2f} "
+          f"m, min {err[-8:].min():.2f} m (JAX {err_j[-8:].mean():.2f}, {err_j[-8:].min():.2f})")
+    return launches
+
+
+def loop_phase(dev):
+    """Loop closure on a two-lap drive of 1024-point scans, against
+    ``tests/data/loop_closure_seed17.npz``. Returns (kNN launches, the
+    kNN's record at the ICP's shape)."""
+    cfg = bench_config()
+    cfg = cfg.replace(estimator=dataclasses.replace(
+        cfg.estimator, loop_closure_on=True, lc_search_radius=15.0, lc_time_thres=10.0,
+        lc_icp_thres=0.3))
+    fx, sc = _scenario(LOOP_FIXTURE, cfg)
+    est = cfg.estimator
+    ep, p_drift = loop_episode(sc, simulate_episode)
+    q = ep.gt_q
+    cands = loop_closure.detect_loops(p_drift, ep.kf_time, search_radius=est.lc_search_radius,
+                                      time_thresh=est.lc_time_thres)
+    check(np.array_equal(np.array([tuple(c) for c in cands]).reshape(-1, 2), fx["cands"]),
+          f"loop candidates {cands} differ from JAX's {fx['cands'].tolist()}")
+    knn_mod.knn.launches = 0
+    run_s, (p, q_out, n_edges) = _sync_s(
+        lambda: pipeline.apply_loop_closure(cfg, ep, p_drift, q, device=dev))
+    launches = knn_mod.knn.launches
+    check(dev.type != "cuda" or launches == 3 * len(cands),
+          f"knn launched {launches} times for {len(cands)} candidates, not 3 each")
+    check(n_edges == int(fx["n_edges"]), f"{n_edges} loop edges, JAX {int(fx['n_edges'])}")
+    check(np.isfinite(p).all() and np.isfinite(q_out).all(), "loop closure output not finite")
+    # Each candidate's ICP apart (launches not counted above).
+    w = max(est.lc_map_width // 2, 1)
+    T = p_drift.shape[0]
+    f = lambda a, dt=torch.float64: torch.as_tensor(np.asarray(a), device=dev).to(dt)
+    icp_s, icp_dp, flags = [], [], []
+    for k, c in enumerate(cands):
+        j0, j1 = max(c.old - w, 0), min(c.old + w + 1, T)
+        args = (f(ep.scan[c.cur], torch.float32), f(ep.scan_valid[c.cur], torch.bool),
+                f(ep.scan[j0:j1], torch.float32), f(ep.scan_valid[j0:j1], torch.bool),
+                f(p_drift[j0:j1]), f(q[j0:j1]), f(p_drift[c.cur]), f(q[c.cur]))
+        t, (p_c, _, _, ok) = _sync_s(lambda: loop_closure.verify_loop(cfg, *args))
+        icp_s.append(t)
+        flags.append(bool(ok))
+        icp_dp.append(float(np.abs(p_c.cpu().numpy() - fx["icp_p"][k]).max()))
+    check(flags == fx["icp_accepted"].tolist(), f"accepted flags {flags} != JAX's "
+                                                f"{fx['icp_accepted'].tolist()}")
+    dp = float(np.abs(p - fx["p"]).max())
+    tol = 10.0 * float(fx["nudge_f32_dp"])
+    check(dp <= tol, f"loop closure: max |p - JAX| {dp} m > {tol} m")
+    g_true = ep.gt_p[-1] - ep.gt_p[0]
+    z_after = abs((p[-1] - p[0])[2] - g_true[2])
+    print(f"loop closure ({T} keyframes, {len(cands)} candidates, map width "
+          f"{est.lc_map_width}): {run_s:.2f} s through apply_loop_closure; knn launches "
+          f"{launches}; {n_edges} edges (as JAX), accepted flags as JAX's; one ICP "
+          f"(3 rounds) {1e3 * statistics.mean(icp_s):.1f} ms on average; max |p_icp - JAX| "
+          f"{max(icp_dp):.3e} m; corrected chain max |p - JAX| {dp:.3e} m (tol {tol:.3e}: 10x "
+          f"JAX's own spread under a 1e-5 m nudge, the f32 resolution of the world points; "
+          f"under 1e-9 m: {float(fx['nudge_dp']):.3e}); closure z error {z_after:.3f} m "
+          f"(before {float(fx['z_before']):.3f}, JAX after {float(fx['z_after']):.3f})")
+    return launches, (ep, p_drift, q, cands, w)
+
+
+def loop_kernel(dev, ep, p_drift, q, cands, w):
+    """The 5-NN at loop closure's ICP shape, kernel against plain bit for
+    bit, and timed: the first candidate with a full local map, its first
+    round's queries. Returns the kNN's record at that shape."""
+    T = p_drift.shape[0]
+    f = lambda a, dt=torch.float64: torch.as_tensor(np.asarray(a), device=dev).to(dt)
+    k = next(i for i, c in enumerate(cands) if c.old - w >= 0 and c.old + w + 1 <= T)
+    c = cands[k]
+    mp, mv = loop_closure.local_map(f(ep.scan[c.old - w:c.old + w + 1], torch.float32),
+                                    f(ep.scan_valid[c.old - w:c.old + w + 1], torch.bool),
+                                    f(p_drift[c.old - w:c.old + w + 1]),
+                                    f(q[c.old - w:c.old + w + 1]))
+    qry = loop_closure.place(f(ep.scan[c.cur], torch.float32), f(p_drift[c.cur]), f(q[c.cur]))
+    qv = f(ep.scan_valid[c.cur], torch.bool).contiguous()
+    d_k, i_k = knn_mod.knn(qry, qv, mp, mv)
+    d_r, i_r = knn_mod.knn_reference(qry, qv, mp, mv)
+    torch.cuda.synchronize()
+    check(torch.equal(i_k, i_r) and torch.equal(d_k, d_r),
+          "knn at the loop-closure ICP's shape: kernel and plain differ")
+    fin = torch.isfinite(d_r)
+    err = float((d_k[fin] - d_r[fin]).abs().max()) if fin.any() else 0.0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ms = time_device_ms(lambda: knn_mod.knn(qry, qv, mp, mv))
+    plain_ms = time_device_ms(lambda: knn_mod.knn_reference(qry, qv, mp, mv))
+    library_ms = time_device_ms(lambda: torch.topk(torch.cdist(qry, mp), 5, largest=False))
+    bound_ms = knn_bound_ms(qv, mv, sms, gpu_clock_mhz())
+    shape = f"{qry.shape[0]} x {mp.shape[0]}"
+    print(f"knn at loop verify {shape} (candidate {tuple(c)}): kernel == plain bit for bit; "
+          f"kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, topk(cdist) {library_ms:.4f} ms "
+          f"(yardstick), FP32 bound {bound_ms:.4f} ms ({bound_ms / ms:.2f} of it)")
+    return {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "library_ms": library_ms, "max_abs_err": err, "launches_per_candidate": 3}
+
+
+def dense_phase(dev):
+    """Dense-frame interpolation and the map export at the bench scan width,
+    against ``tests/data/dense_pcd_seed19.npz``."""
+    cfg = GlioConfig()
+    fx, sc = _scenario(DENSE_FIXTURE, cfg)
+    est = cfg.estimator
+    ep, kf_p = dense_episode(sc, simulate_episode)
+    f = lambda a: torch.as_tensor(np.asarray(a, float), device=dev)
+    args = (f(kf_p), f(ep.gt_q), f(ep.dense_rel_dp), f(ep.dense_rel_dq),
+            torch.as_tensor(ep.dense_rel_valid, device=dev))
+    local_graph.interpolate_segments(*args, max_dense=sc["dense_frames"])
+    dense_s, (p_d, q_d, v_d) = _sync_s(
+        lambda: local_graph.interpolate_segments(*args, max_dense=sc["dense_frames"]))
+    check(np.array_equal(v_d.cpu().numpy(), fx["dense_valid"]), "dense validity differs")
+    dp = float(np.abs(p_d.cpu().numpy() - fx["p_dense"]).max())
+    dq = float(np.abs(q_d.cpu().numpy() - fx["q_dense"]).max())
+    check(dp <= DENSE_TOL and dq <= DENSE_TOL,
+          f"dense frames: max |p - JAX| {dp} m, |q - JAX| {dq} (tol {DENSE_TOL})")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "map.pcd")
+
+        def export():
+            world, valid = pointcloud.assemble_map(ep.scan, ep.scan_valid, kf_p, ep.gt_q,
+                                                   every=max(est.mapping_interval, 1),
+                                                   ql2b=est.ql2b, tl2b=est.tl2b, device=dev)
+            return world, pointcloud.write_pcd(path, world, valid)
+
+        map_s, (world, n) = _sync_s(export)
+        pts = pointcloud.read_pcd(path)
+    sums = np.array([world.sum(), (world ** 2).sum()])
+    check(pts.shape == fx["pcd_points"].shape, f"map.pcd holds {pts.shape[0]} points, JAX's "
+                                               f"{fx['pcd_points'].shape[0]}")
+    d_pcd = float(np.abs(pts - fx["pcd_points"]).max())
+    check(d_pcd <= 1e-4 and np.allclose(sums, fx["world_checksum"], rtol=1e-12, atol=0),
+          f"map export differs from JAX's: PCD {d_pcd}, checksums {sums} vs "
+          f"{fx['world_checksum']}")
+    print(f"dense frames ({tuple(p_d.shape)}, one batched LM over the segments): "
+          f"{1e3 * dense_s:.1f} ms; max |p - JAX| {dp:.3e} m, |q - JAX| {dq:.3e} (tol "
+          f"{DENSE_TOL}); map export ({n} points, one keyframe in {est.mapping_interval}): "
+          f"assemble + write_pcd {1e3 * map_s:.1f} ms; PCD within {d_pcd:.1e} of JAX's, "
+          f"checksums to 1e-12")
 
 
 def main():
@@ -827,6 +1128,16 @@ def main():
     pairs_kern = sms1_phase(dev)
     pairs_kern["max_abs_err"] = knn_kern.pop("max_abs_err_pairs")
     pipeline_phase(dev, level=1)
+    lc_phase(dev)
+    fusion_launches = fusion_phase(dev)
+    loop_launches, loop_ctx = loop_phase(dev)
+    loop_rec = loop_kernel(dev, *loop_ctx)
+    loop_rec["launches"] = loop_launches
+    dense_phase(dev)
+    knn_kern["loop_verify"] = loop_rec
+    knn_kern["max_abs_err"] = max(knn_kern["max_abs_err"], loop_rec["max_abs_err"])
+    knn_kern["launches_by_path"] = {"replay": launches, "backend_fusion": fusion_launches,
+                                    "loop_closure": loop_launches}
     print(json.dumps({"kernels": [
         {"name": "knn5_f32", "route": "cuda", "source": "glio_tpu_torch/csrc/knn.cu",
          "replaces": "glio_tpu/ops/knn_pallas.py:30", "launches": launches, **knn_kern},

@@ -68,9 +68,8 @@ class Episode:
     # against ENU; None falls back to the config's values.
     anchor_ecef: Optional[np.ndarray] = None
     yaw_enu_local: Optional[float] = None
-    # Dense non-key frame odometry (the local-graph stage's input). The
-    # port's pipeline does not run that stage yet and refuses an episode
-    # that carries it.
+    # Dense non-key frame odometry: the local-graph interpolation's input,
+    # which ``run_pipeline`` refines into ``dense_path.csv``.
     dense_rel_dp: Optional[np.ndarray] = None     # (T-1, D+1, 3)
     dense_rel_dq: Optional[np.ndarray] = None     # (T-1, D+1, 4)
     dense_rel_valid: Optional[np.ndarray] = None  # (T-1, D+1) bool

@@ -8,9 +8,8 @@ episodes this module makes bit-identical to the JAX package's;
 
 Ground truth is propagated by the same midpoint scheme the estimator
 integrates with, so noise-free, bias-free IMU reproduces it to f64
-round-off. Not copied yet: the circular drive (``circle_omega``) and the
-dense non-key frame channel (``dense_frames``), which only the loop-closure
-and local-graph stages use.
+round-off. ``circle_omega`` (a closed circular drive) feeds loop closure,
+``dense_frames`` (the dense non-key frame channel) the local graph.
 """
 
 import numpy as np
@@ -156,8 +155,19 @@ def simulate_episode(
     seed=0,
     q_lb=(1.0, 0.0, 0.0, 0.0),
     t_lb=(0.0, 0.0, 0.28),
+    circle_omega=None,
+    dense_frames=0,
+    dense_noise=0.01,
+    return_dense_gt=False,
 ) -> Episode:
-    """Build a fully-consistent synthetic episode (see module docstring)."""
+    """Build a fully-consistent synthetic episode (see module docstring).
+
+    ``circle_omega``: yaw rate (rad/s) of a closed circular drive, radius
+    speed/ω, back at the start after 2π/ω seconds. ``dense_frames``:
+    interior non-key frames per keyframe segment, as noisy relative-pose
+    hops (the reference's 10 Hz ``/each_odom`` channel). With
+    ``return_dense_gt`` also returns the IMU-rate truth
+    ``{"t", "p", "q", "kf_idx", "world"}``."""
     rng = np.random.default_rng(seed)
     T = n_keyframes
     imu_dt = 1.0 / imu_rate
@@ -186,6 +196,13 @@ def simulate_episode(
         smooth_profile(1.2, key=5),
         smooth_profile(0.3, key=6),
     ], -1)                                     # world-frame acceleration
+    if circle_omega is not None:
+        # Constant yaw rate and centripetal world acceleration:
+        # v(t) = speed·(cos ωt, sin ωt, 0).
+        w = float(circle_omega)
+        omega_true = np.tile([0.0, 0.0, w], (n_imu, 1))
+        acc_w_true = speed * w * np.stack(
+            [-np.sin(w * t_imu), np.cos(w * t_imu), np.zeros_like(t_imu)], -1)
 
     g = np.array([0.0, 0.0, params.gravity])
     ba = np.asarray(accel_bias, float)
@@ -264,14 +281,44 @@ def simulate_episode(
         scan[i] = pts_b @ R_lb.T + np.asarray(t_lb, np.float32)
         scan_valid[i] = keep
 
-    return Episode(
+    # Dense (non-key) frames: hop 0 leaves the left keyframe, the last hop
+    # lands on the right one (``local_graph.interpolate_segments``).
+    dense_kw = {}
+    if dense_frames > 0:
+        D = dense_frames
+        drng = np.random.default_rng(seed * 31 + 7)
+        rel_dp = np.zeros((T - 1, D + 1, 3))
+        rel_dq = np.zeros((T - 1, D + 1, 4))
+        rel_dq[..., 0] = 1.0
+        rel_valid = np.ones((T - 1, D + 1), bool)
+        dense_t = np.zeros((T - 1, D))
+        for k in range(T - 1):
+            sub = np.linspace(kf_idx[k], kf_idx[k + 1], D + 2).round().astype(int)
+            dense_t[k] = t_imu[sub[1:-1]]
+            for h in range(D + 1):
+                a, b = sub[h], sub[h + 1]
+                qa, qb = qs[a], qs[b]
+                dp = _quat_rotmat(qa).T @ (ps[b] - ps[a])
+                dq = _quat_mul(_quat_conj(qa), qb)
+                rel_dp[k, h] = dp + dense_noise * drng.normal(size=3)
+                ang = dense_noise * 0.1 * drng.normal(size=3)
+                rel_dq[k, h] = _quat_mul(dq, _delta_q(ang))
+                rel_dq[k, h] /= np.linalg.norm(rel_dq[k, h])
+        dense_kw = dict(dense_rel_dp=rel_dp, dense_rel_dq=rel_dq,
+                        dense_rel_valid=rel_valid, dense_time=dense_t)
+
+    ep = Episode(
         kf_time=t_kf,
         imu_acc=imu_acc, imu_gyr=imu_gyr, imu_dt=imu_dts, imu_valid=imu_val,
         scan=scan, scan_valid=scan_valid,
         p0=ps[0], q0=qs[0], v0=vs[0],
         acc0=acc_out[0], gyr0=gyr_out[0],
         gt_p=ps[kf_idx], gt_q=qs[kf_idx], gt_v=vs[kf_idx],
+        **dense_kw,
     )
+    if return_dense_gt:
+        return ep, {"t": t_imu, "p": ps, "q": qs, "kf_idx": kf_idx, "world": world}
+    return ep
 
 
 def simulate_gnss_epochs(gt_p_enu, kf_time, anchor_ecef, station_ecef,

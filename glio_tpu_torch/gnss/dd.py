@@ -8,13 +8,24 @@ the element-wise square root of D W⁻¹ Dᵀ before inverting (``cwiseSqrt``),
 not a matrix square root; so does this module.
 
 ``elesnr_var_np``, ``select_master`` and ``dd_whitening_matrix`` are host
-numpy, copied from the JAX package. ``dd_residual`` is torch and takes any
-number of leading (epoch) axes. ``bind_epochs_to_keyframes`` belongs to
-GNSS in the sliding window, which is not ported yet.
+numpy, copied from the JAX package; ``elesnr_var`` is their torch twin for
+the device. ``dd_residual`` is torch and takes any number of leading
+(epoch) axes. ``bind_epochs_to_keyframes`` belongs to GNSS in the sliding
+window, which is not ported yet.
 """
 
 import numpy as np
 import torch
+
+
+def elesnr_var(el, snr):
+    """goGPS elevation/SNR variance (``spp.elesnr_var``), torch, any shape:
+    larger is worse."""
+    T, A, a, F = 50.0, 30.0, 30.0, 10.0
+    q1 = 1.0 / torch.clamp(torch.sin(el) ** 2, min=1e-4)
+    q2 = 10.0 ** (-(snr - T) / a)
+    q3 = ((A / (10.0 ** (-(F - T) / a)) - 1.0) / (F - T)) * (snr - T) + 1.0
+    return q1 * (q2 * q3)
 
 
 def elesnr_var_np(el, snr):

@@ -9,8 +9,9 @@ cyclic reduction and the selected inverse of the diagonal blocks.
 Everything is f64 on the card: the JAX package's f32 paths
 (``cyclic_reduction_solve_mixed``, ``_equilibrate``,
 ``f32_matmul_precision``) exist because TPU f64 is emulated and have no
-counterpart. The sequential ``block_cholesky`` / ``direct_solve``,
-``pcg_chol_solve`` and ``woodbury_solve`` are not ported yet.
+counterpart. The sequential ``block_cholesky`` with ``direct_solve`` and
+``woodbury_solve`` (banded plus a few dense rows: loop closure) are here;
+``pcg_chol_solve`` is not ported yet.
 
 Determinism: ``scatter_add_blocks`` sums duplicate targets one occurrence
 at a time in the order of the updates, as ``.at[].add`` does on the CPU, so
@@ -23,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .linalg import cholesky_or_nan
+from .linalg import cholesky_or_nan, spd_solve
 
 
 class BandedSystem(NamedTuple):
@@ -283,6 +284,90 @@ def cyclic_reduction_solve(band, b):
     bsup[:T] = b
     x = tridiag_cr_solve(A, Bm, C, bsup.reshape(N, S)[..., None])[..., 0]
     return x.reshape(-1, D)[:T]
+
+
+def block_cholesky(band, jitter: float = 0.0):
+    """Lower block-banded Cholesky factor of a block-banded SPD matrix.
+
+    band: (T, 2hw+1, D, D). Returns Lb (T, hw+1, D, D) with
+    Lb[t, m] = L[t][t − m] (m = 0 the diagonal). One block row after the
+    other, as the JAX package's scan: a sequence of T small steps.
+    """
+    T, Bw, D, _ = band.shape
+    hw = (Bw - 1) // 2
+    eye = torch.eye(D, dtype=band.dtype, device=band.device)
+    zero = torch.zeros((D, D), dtype=band.dtype, device=band.device)
+    rows = []
+    for t in range(T):
+        new = [zero] * (hw + 1)
+        # Columns left to right: j = t − m for m = hw..1, then the diagonal.
+        for m in range(hw, 0, -1):
+            j = t - m
+            if j < 0:
+                continue
+            # S = A[t][j] − Σ L[t][k] L[j][k]ᵀ over k = j − 1..j − (hw − m).
+            S = band[t, hw - m]
+            for k_off in range(1, hw - m + 1):
+                S = S - new[m + k_off] @ rows[j][k_off].mT
+            # L[t][j] = S L[j][j]⁻ᵀ.
+            new[m] = torch.linalg.solve_triangular(rows[j][0], S.mT, upper=False).mT
+        S = band[t, hw]
+        for m in range(1, hw + 1):
+            S = S - new[m] @ new[m].mT
+        new[0] = cholesky_or_nan(S + jitter * eye)
+        rows.append(torch.stack(new))
+    return torch.stack(rows)
+
+
+def block_cholesky_solve(Lb, b):
+    """Solve H x = b with ``block_cholesky``'s factor; b is (T, D) or, for
+    several right-hand sides at once, (T, D, K)."""
+    T, HW1, D, _ = Lb.shape
+    hw = HW1 - 1
+    vector = b.dim() == 2
+    rhs = b[..., None] if vector else b
+    # Forward: L y = b.
+    y = []
+    for t in range(T):
+        s = rhs[t]
+        for m in range(1, min(hw, t) + 1):
+            s = s - Lb[t, m] @ y[t - m]
+        y.append(torch.linalg.solve_triangular(Lb[t, 0], s, upper=False))
+    # Backward: Lᵀ x = y, with L[t+m][t]ᵀ = Lb[t+m, m]ᵀ.
+    x = [None] * T
+    for t in range(T - 1, -1, -1):
+        s = y[t]
+        for m in range(1, min(hw, T - 1 - t) + 1):
+            s = s - Lb[t + m, m].mT @ x[t + m]
+        x[t] = torch.linalg.solve_triangular(Lb[t, 0].mT, s, upper=True)
+    x = torch.stack(x)
+    return x[..., 0] if vector else x
+
+
+def direct_solve(band, b, jitter: float = 1e-12):
+    """Exact banded solve: block Cholesky and two substitution sweeps."""
+    return block_cholesky_solve(block_cholesky(band, jitter=jitter), b)
+
+
+def woodbury_solve(band, b, J_extra, r_extra, jitter: float = 1e-12):
+    """Solve (H_band + J_extraᵀ J_extra) x = b − J_extraᵀ r_extra.
+
+    Loop-closure rows break the band; with few of them the system is
+    banded plus low rank, so with S = H_band⁻¹ (block Cholesky) and
+    b' = b − Jᵀr, x = S b' − S Jᵀ (I + J S Jᵀ)⁻¹ J S b'. J_extra is
+    (L, T, D): the extra rows' Jacobian, dense over the keyframes.
+    """
+    Lb = block_cholesky(band, jitter=jitter)
+    rhs = b - torch.einsum("ltd,l->td", J_extra, r_extra)
+    # S b' and S Jᵀ in one pair of sweeps: L + 1 right-hand sides.
+    cols = torch.cat([rhs[..., None], J_extra.permute(1, 2, 0)], dim=-1)
+    sol = block_cholesky_solve(Lb, cols)
+    Sb, SJt = sol[..., 0], sol[..., 1:].permute(2, 0, 1)
+    L = J_extra.shape[0]
+    core = torch.eye(L, dtype=band.dtype, device=band.device) + torch.einsum(
+        "ltd,mtd->lm", J_extra, SJt)
+    w = spd_solve(core, torch.einsum("ltd,td->l", J_extra, Sb))
+    return Sb - torch.einsum("ltd,l->td", SJt, w)
 
 
 def selected_inverse_diag(band):

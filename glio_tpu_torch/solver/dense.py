@@ -4,7 +4,8 @@ The window is one flat tangent vector (5 keyframes × 15 dof); Jacobians come
 from ``torch.func.jacfwd`` through the retraction, the damped normal
 equations are solved by an f64 Cholesky, and accept/reject is a masked
 select on the device. The iteration count is fixed, so the solve never
-waits on the host.
+waits on the host. ``lm_solve_batched`` runs many independent problems at
+once (the JAX package's ``vmap`` of ``lm_solve``: the dense frames' segments).
 """
 
 from typing import Callable, NamedTuple
@@ -33,14 +34,15 @@ def _cost(r):
     return 0.5 * torch.sum(r * r)
 
 
-def huber_weight(r):
-    """IRLS square-root Huber weights (Ceres ``HuberLoss(HUBER_DELTA)``).
+def huber_weight(r, delta: float = HUBER_DELTA):
+    """IRLS square-root Huber weights (Ceres ``HuberLoss(delta)``); the
+    window's lidar rows use the reference's 1.0, loop closure's ICP 0.2.
 
     Detached, so that differentiation treats the weight as constant at the
     linearization point, as ``stop_gradient`` does in the JAX package.
     """
     a = torch.abs(r)
-    w = torch.sqrt(torch.clamp(HUBER_DELTA / torch.clamp(a, min=1e-12), max=1.0))
+    w = torch.sqrt(torch.clamp(delta / torch.clamp(a, min=1e-12), max=1.0))
     return w.detach()
 
 
@@ -72,6 +74,48 @@ def lm_solve(residual_fn: Callable, retract_fn: Callable, x0, tangent_dim: int,
         improved = new_cost < cost
         x = tree_where(improved, x_new, x)
         r = torch.where(improved, r_new, r)
+        cost = torch.where(improved, new_cost, cost)
+        lam = torch.clamp(torch.where(improved, lam * LAMBDA_DOWN, lam * LAMBDA_UP),
+                          LAMBDA_MIN, LAMBDA_MAX)
+        accepted = accepted + improved.to(torch.int32)
+    return LMResult(x, cost, init_cost, lam, accepted)
+
+
+def lm_solve_batched(residual_fn: Callable, retract_fn: Callable, x0, tangent_dim: int,
+                     max_iters: int = 15) -> LMResult:
+    """``lm_solve`` over B independent problems at once, each with its own
+    damping and accept/reject: the JAX package's ``vmap`` of ``lm_solve``.
+
+    The state's fields carry a leading axis B; residual_fn maps it to
+    (B, R) rows, and retract_fn applies (B, tangent_dim) steps. Problem b's
+    rows must depend on its own state only: one forward-mode pass over a
+    tangent added to every problem then gives all B Jacobians (B, R, n).
+    Returns an LMResult whose cost, lam and iters have shape (B,).
+    """
+    B = x0[0].shape[0]
+    dev = x0[0].device
+    zeros = torch.zeros(tangent_dim, dtype=torch.float64, device=dev)
+    r = residual_fn(x0)
+    cost = init_cost = 0.5 * torch.sum(r * r, dim=-1)
+    x = x0
+    lam = torch.full((B,), LAMBDA_INIT, dtype=torch.float64, device=dev)
+    accepted = torch.zeros((B,), dtype=torch.int32, device=dev)
+    for _ in range(max_iters):
+        x_lin = x
+        J = torch.func.jacfwd(
+            lambda d: residual_fn(retract_fn(x_lin, d.expand(B, tangent_dim))))(zeros)
+        H = J.mT @ J
+        g = torch.einsum("brn,br->bn", J, r)
+        dH = torch.diagonal(H, dim1=-2, dim2=-1)
+        D = torch.diag_embed(torch.where(dH > 1e-10, dH, torch.ones_like(dH)))
+        delta = -linalg.spd_solve(H + lam[:, None, None] * D, g)
+        x_new = retract_fn(x, delta)
+        r_new = residual_fn(x_new)
+        new_cost = 0.5 * torch.sum(r_new * r_new, dim=-1)
+        improved = new_cost < cost
+        x = type(x)(*(torch.where(improved.view(-1, *([1] * (a.dim() - 1))), a_new, a)
+                      for a, a_new in zip(x, x_new)))
+        r = torch.where(improved[:, None], r_new, r)
         cost = torch.where(improved, new_cost, cost)
         lam = torch.clamp(torch.where(improved, lam * LAMBDA_DOWN, lam * LAMBDA_UP),
                           LAMBDA_MIN, LAMBDA_MAX)

@@ -22,10 +22,13 @@ def cholesky_or_nan(A):
 
 
 def spd_solve(H, b):
-    """Solve H x = b for symmetric positive-definite H (b a vector)."""
+    """Solve H x = b for symmetric positive-definite H (..., n, n): b is a
+    vector (..., n) or, with as many axes as H, a matrix (..., n, k)."""
     L = cholesky_or_nan(H)
-    y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
-    return torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
+    vector = b.dim() == H.dim() - 1
+    y = torch.linalg.solve_triangular(L, b[..., None] if vector else b, upper=False)
+    x = torch.linalg.solve_triangular(L.mT, y, upper=True)
+    return x[..., 0] if vector else x
 
 
 def solve_3x3(A, b, eps: float):

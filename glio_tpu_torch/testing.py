@@ -5,9 +5,14 @@
 problems in ``KNN_CASES``, batches of keyframe pairs in ``KNN_PAIR_CASES``)
 and time kernels with ``time_device_ms``, so the three agree on what a case
 and a time are; ``selected_indices`` names the points level 1's
-correspondences hold. Nothing on an estimation path imports this module.
+correspondences hold. The scenarios of the stage-3 fixtures
+(``scripts/make_torch_stage3_fixture.py``) are built here too, from the
+simulator the caller passes (the JAX package's or the port's), so the
+fixture script, the CPU tests and ``chip_smoke.py`` build the same ones.
+Nothing on an estimation path imports this module.
 """
 
+import re
 import statistics
 import subprocess
 
@@ -64,6 +69,8 @@ KNN_CASES = {
     "queries_ragged_5119": lambda r: (*cloud(r, 5119), *cloud(r, 16384)),
     "queries_ragged_17000": lambda r: (*cloud(r, 17000), *cloud(r, 16384)),
     "all_map_points_invalid": lambda r: (*cloud(r, 1000), *cloud(r, 4096, valid_share=0.0)),
+    # Loop closure's ICP: a 1024-point scan against 25 keyframes' scans (2).
+    "loop_verify_1024x25600": lambda r: (*cloud(r, 1024), *cloud(r, 25600)),
 }
 
 
@@ -164,3 +171,48 @@ def selected_indices(scans, pts_i, mask):
             raise ValueError(f"frame {i}: a slot holds no point of its scan")
         out[i] = np.where(mask[i], eq.argmax(-1), 0xFFFF)
     return out
+
+
+# --- scenarios of the stage-3 fixtures ----------------------------------------------
+
+def divergence_episode(sc, simulate_episode):
+    """The backend-fusion divergence scenario ``sc`` (a fixture's
+    ``scenario_json``): IMU specific force offset by ``imu_bias`` on
+    ``imu_bias_frames``, LiDAR blinded on ``blind_frames``."""
+    ep = simulate_episode(n_keyframes=sc["n_keyframes"], scan_points=sc["scan_points"],
+                          seed=sc["seed"])
+    a, b = sc["imu_bias_frames"]
+    ep.imu_acc[a:b] += np.asarray(sc["imu_bias"])
+    a, b = sc["blind_frames"]
+    ep.scan_valid[a:b] = False
+    return ep
+
+
+_RESET = re.compile(r"\[fusion t=(\d+)\] RESET → (fused tail|direct RTK fix)")
+
+
+def reset_decisions(lines):
+    """(keyframe, branch) of every reset in ``replay_with_backend_fusion``'s
+    ``debug`` lines."""
+    return [(int(m.group(1)), m.group(2)) for m in map(_RESET.search, lines) if m]
+
+
+def loop_episode(sc, simulate_episode):
+    """The loop-closure scenario ``sc``: a ``circle_omega`` drive of
+    ``n_keyframes`` (a lap every ``lap_keyframes``) and its chain drifted
+    smoothly, as (k/(T−1))² · ``drift``. Returns (episode, drifted p)."""
+    T = sc["n_keyframes"]
+    ep = simulate_episode(n_keyframes=T, kf_dt=1.0 / 3.0, scan_points=sc["scan_points"],
+                          seed=sc["seed"], circle_omega=2 * np.pi / (sc["lap_keyframes"] / 3.0))
+    ramp = (np.arange(T) / (T - 1))[:, None] ** 2
+    return ep, ep.gt_p + ramp * np.asarray(sc["drift"])
+
+
+def dense_episode(sc, simulate_episode):
+    """The dense-frame scenario ``sc``: a ``dense_frames`` drive and its
+    keyframe positions (truth plus N(0, ``pose_noise``) m)."""
+    ep = simulate_episode(n_keyframes=sc["n_keyframes"], scan_points=sc["scan_points"],
+                          seed=sc["seed"], dense_frames=sc["dense_frames"],
+                          dense_noise=sc["dense_noise"])
+    rng = np.random.default_rng(sc["pose_seed"])
+    return ep, ep.gt_p + rng.normal(scale=sc["pose_noise"], size=ep.gt_p.shape)

@@ -15,15 +15,18 @@ holds the port against (the card has no jax):
   p and q of both solves, the per-stage costs, the diagonal of the
   marginal covariance and the calibrated translation stds at the f64
   solution.
-* ``tests/data/pipeline_seed0.npz`` — ``run_pipeline(..., run_lc=False)``
-  at the ``bench.py`` shapes on ``simulate_episode(n_keyframes=15,
-  seed=0)`` with GNSS at every keyframe (``epoch_stride=1``): the rows of
-  ``tc_sw_result.csv``, ``tc_batch_result.csv`` and ``tc_batch_cov.csv``,
-  and n_lidar_factors per keyframe. The pipeline runs twice: as it is (its
-  batch stage in mixed precision, the JAX main path) and with the batch
-  solve in f64 (``*_f64`` keys), the port's arithmetic. On 15 keyframes
-  the batch has not converged after 40 iterations and the two JAX runs
-  end ~4 cm apart, so the port is held to the f64 run.
+* ``tests/data/pipeline_seed0.npz`` — ``run_pipeline`` (stages 1-3) at
+  the ``bench.py`` shapes on ``simulate_episode(n_keyframes=15, seed=0)``
+  with GNSS at every keyframe (``epoch_stride=1``): the rows of
+  ``tc_sw_result.csv``, ``tc_batch_result.csv``, ``tc_batch_cov.csv`` and
+  ``lc_result.csv``, and n_lidar_factors per keyframe. The pipeline runs
+  twice: as it is (its batch stage in mixed precision, the JAX main path)
+  and with the batch solve in f64 (``*_f64`` keys), the port's arithmetic.
+  On 15 keyframes the batch has not converged after 40 iterations and the
+  two JAX runs end ~4 cm apart, so the port is held to the f64 run. Stage
+  3 does not depend on the batch; its spread and its gain from a stage-1
+  difference (``lc_*`` keys) come from
+  ``scripts/make_torch_stage3_fixture.py::stage3_spread``.
 
 Each file stores the configuration it was made with. Takes about two
 minutes:
@@ -50,7 +53,7 @@ BATCH = dict(n_keyframes=3493, seed=4, psr_noise=0.5, epoch_stride=3,
              rel_huber=5.0)
 THRESHOLDS = (1e9, 10.0, 8.0, 6.0)
 PIPE = dict(n_keyframes=15, scan_points=1024, seed=0, gnss_seed=0, epoch_stride=1)
-CSV_NAMES = ("tc_sw_result.csv", "tc_batch_result.csv", "tc_batch_cov.csv")
+CSV_NAMES = ("tc_sw_result.csv", "tc_batch_result.csv", "tc_batch_cov.csv", "lc_result.csv")
 
 
 def problem_checksums(p_odo, psr_rov, whiten, ep_valid):
@@ -146,15 +149,18 @@ def make_pipeline_fixture() -> dict:
     ep.anchor_ecef = anchor
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        run_pipeline(ep, cfg, out_dir=tmp, run_lc=False)
+        res = run_pipeline(ep, cfg, out_dir=tmp)
         for name in CSV_NAMES:
             out[name.replace(".csv", "")] = read_csv_rows(os.path.join(tmp, name))
     f64_solve = functools.partial(B.optimize_batch, mixed=False)
     with tempfile.TemporaryDirectory() as tmp, \
             unittest.mock.patch.object(B, "optimize_batch", f64_solve):
         run_pipeline(ep, cfg, out_dir=tmp, run_lc=False)
-        for name in CSV_NAMES[1:]:
+        for name in CSV_NAMES[1:3]:
             out[name.replace(".csv", "_f64")] = read_csv_rows(os.path.join(tmp, name))
+    from make_torch_stage3_fixture import stage3_spread
+    out.update(stage3_spread(cfg, ep, res.p_sw, res.q_sw, anchor, 0.0,
+                             np.asarray(cfg.initialization.station_ecef)))
     replay, _ = make_replay(cfg)
     sw = replay(ep.to_inputs(), ep.p0, ep.q0, ep.v0, ep.acc0, ep.gyr0)
     out["n_lidar_factors"] = np.asarray(sw.n_lidar_factors)
@@ -165,6 +171,7 @@ def make_pipeline_fixture() -> dict:
 
 def main():
     sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
     os.makedirs(os.path.dirname(BATCH_OUT), exist_ok=True)
     fx = make_batch_fixture()
     np.savez_compressed(BATCH_OUT, **fx)

@@ -31,10 +31,12 @@ holds the port against (the card has no jax):
   (``fit_planes_f64_eigensystem``), associated and solved in f64: p, q and
   v (``*_f64eig``) and how many slots that gives another point
   (``f64eig_sel_differ``) or empties or fills (``f64eig_mask_differ``).
-* ``tests/data/pipeline_sms1_seed0.npz`` — ``run_pipeline(...,
-  run_lc=False)`` with ``sms_fusion_level=1`` at the ``bench.py`` shapes on
+* ``tests/data/pipeline_sms1_seed0.npz`` — ``run_pipeline`` (stages 1-3)
+  with ``sms_fusion_level=1`` at the ``bench.py`` shapes on
   ``simulate_episode(n_keyframes=15, seed=0)`` with GNSS at every keyframe:
-  the rows of ``tc_sw_result.csv`` and ``tc_batch_result.csv``, with the
+  the rows of ``tc_sw_result.csv``, ``tc_batch_result.csv`` and
+  ``lc_result.csv`` (with stage 3's spread and gain, the ``lc_*`` keys of
+  ``scripts/make_torch_stage3_fixture.py::stage3_spread``), with the
   level-1 batch solve in mixed precision (the JAX main path) and in f64
   (``*_f64`` keys); how far the f64 batch's positions and yaw/pitch/roll
   move when stage 2 is run again from the stage-1 trajectory nudged by
@@ -75,7 +77,7 @@ SMS1 = dict(n_keyframes=3493, scan_points=1024, seed=4, psr_noise=0.5, epoch_str
             drift_step=0.05, odo_noise=0.05, lm_iters=6, nudge_m=1e-9)
 THRESHOLDS = (1e9, 10.0, 8.0, 6.0)
 PIPE = dict(n_keyframes=15, scan_points=1024, seed=0, gnss_seed=0, epoch_stride=1)
-CSV_NAMES = ("tc_sw_result.csv", "tc_batch_result.csv")
+CSV_NAMES = ("tc_sw_result.csv", "tc_batch_result.csv", "lc_result.csv")
 
 
 def checksums(*arrays):
@@ -251,7 +253,7 @@ def make_pipeline_fixture() -> dict:
     ep.anchor_ecef = anchor
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        run_pipeline(ep, cfg, out_dir=tmp, run_lc=False)
+        res0 = run_pipeline(ep, cfg, out_dir=tmp)
         for name in CSV_NAMES:
             out[name.replace(".csv", "")] = read_csv_rows(os.path.join(tmp, name))
     f64_solve = functools.partial(B.optimize_batch_sms1_imu, mixed=False)
@@ -284,6 +286,8 @@ def make_pipeline_fixture() -> dict:
         gains.append((dp / np.abs(d).max(), dypr / np.abs(d).max()))
     out["gain_p_per_m"] = np.array(max(g[0] for g in gains))
     out["gain_ypr_per_m"] = np.array(max(g[1] for g in gains))
+    from make_torch_stage3_fixture import stage3_spread
+    out.update(stage3_spread(cfg, ep, res0.p_sw, res0.q_sw, anchor, 0.0, station))
     out["config_json"] = np.array(json.dumps(dataclasses.asdict(cfg)))
     out["scenario_json"] = np.array(json.dumps(PIPE))
     return out
@@ -295,6 +299,7 @@ def main():
     ap.add_argument("--only", choices=("sms1", "pipeline"))
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
     os.makedirs(os.path.dirname(SMS1_OUT), exist_ok=True)
     if args.only != "pipeline":
         make_sms1_file(args.keyframes)

@@ -56,6 +56,29 @@ def test_simulator_bit_identical(seed):
         np.testing.assert_array_equal(a, b, err_msg=f.name)
 
 
+@pytest.mark.parametrize("options", [
+    dict(circle_omega=2 * np.pi / 10.0),
+    dict(dense_frames=3, dense_noise=0.005),
+    dict(circle_omega=0.3, dense_frames=2, return_dense_gt=True),
+], ids=["circle", "dense", "circle_dense_gt"])
+def test_simulator_options_bit_identical(options):
+    kw = dict(n_keyframes=6, scan_points=200, seed=17, **options)
+    j, t = jax_simulate(**kw), port_simulate(**kw)
+    if options.get("return_dense_gt"):
+        (j, gt_j), (t, gt_t) = j, t
+        assert sorted(gt_t) == sorted(gt_j)
+        for key in ("t", "p", "q", "kf_idx"):
+            np.testing.assert_array_equal(gt_t[key], gt_j[key], err_msg=key)
+        np.testing.assert_array_equal(gt_t["world"].centers, gt_j["world"].centers)
+    for f in dataclasses.fields(t):
+        a, b = getattr(t, f.name), getattr(j, f.name)
+        if b is None:
+            assert a is None, f.name
+            continue
+        np.testing.assert_array_equal(a, b, err_msg=f.name)
+    assert (t.dense_rel_dp is not None) == ("dense_frames" in options)
+
+
 def test_episode_to_inputs_dtypes():
     import torch
     inp = port_simulate(n_keyframes=3, scan_points=64, seed=1).to_inputs("cpu")

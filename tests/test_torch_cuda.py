@@ -1,7 +1,8 @@
 """The port's CUDA path on the card: the k-NN kernel (single problems and
-batches of keyframe pairs) and the copy kernel against their plain
-versions, bit for bit, the probe, and the replay, the batch stage and batch
-level 1 on the card against the same code on the CPU.
+batches of keyframe pairs, the loop-closure ICP's 1024 x 25,600 among them)
+and the copy kernel against their plain versions, bit for bit, the probe,
+and the replay, the batch stage, batch level 1, stage 3 and backend fusion
+on the card against the same code on the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 no jax, so it runs on a machine that has only torch:
@@ -274,3 +275,69 @@ def test_level1_solve_on_card_is_deterministic_and_matches_cpu(cuda):
     assert all(bool(torch.isfinite(a).all()) for a in g1[:5])
     np.testing.assert_allclose(g1[0].cpu().numpy(), c[0].numpy(), rtol=0, atol=3e-4)
     np.testing.assert_allclose(g1[5], c[5], rtol=5e-7)
+
+
+def test_stage3_on_card_is_deterministic_and_matches_cpu(cuda):
+    """300 keyframes of the batch drive with GNSS every third: the DD fixes
+    on the card equal the CPU's to 1e-7 m (the T = 3493 gate is 5.2e-7 m,
+    10x JAX's own spread) with the same ok masks, and two LC solves on the
+    card agree bit for bit and with the CPU's to 1e-7 m: the chain follows
+    its fixes about one to one."""
+    from glio_tpu_torch import pipeline
+    from glio_tpu_torch.models import lc_fusion
+    cfg = GlioConfig()
+    anchor = np.asarray(cfg.initialization.anc_ecef)
+    station = np.asarray(cfg.initialization.station_ecef)
+    kf_time, p_true, q_true, p_odo = drifted_trajectory(300)
+    gnss = simulate_gnss_epochs(p_true, kf_time, anchor, station, psr_noise=0.5, seed=4)
+    outs = {}
+    for dev in ("cpu", cuda):
+        fix, _, ok, _ = pipeline._dd_fixes(cfg, gnss, anchor, station, dev)
+        gp, gv, gs = pipeline.lc_fixes(cfg, gnss, kf_time, anchor, 0.0, station, dev)
+        prob = lc_fusion.build_problem(p_odo, q_true, gp, gv, gs, device=dev)
+        p0, q0 = (torch.as_tensor(a, device=dev) for a in (p_odo, q_true))
+        outs[str(dev)] = (fix, ok, lc_fusion.solve(prob, p0, q0), lc_fusion.solve(prob, p0, q0))
+    c, g = outs["cpu"], outs[str(cuda)]
+    assert torch.equal(c[1], g[1].cpu()) and bool(c[1].all())
+    np.testing.assert_allclose(g[0].cpu().numpy(), c[0].numpy(), rtol=0, atol=1e-7)
+    assert all(torch.equal(a, b) for a, b in zip(g[2], g[3]))
+    np.testing.assert_allclose(g[2][0].cpu().numpy(), c[2][0].numpy(), rtol=0, atol=1e-7)
+
+
+def test_backend_fusion_on_card_matches_cpu(cuda):
+    """A short divergence run (24 keyframes of 256 points, lidar blinded on
+    12-19, GNSS every keyframe, a fusion every 8 over 16): the kNN launches
+    once per keyframe on the card, the reset decisions are the CPU's (one
+    re-anchor from direct fixes at keyframe 24), and the trajectory matches
+    the CPU's to 1e-2 m: 10x the CPU's own spread under a +-1e-9 m nudge of
+    p0 (8.9e-4 m; the reset re-seeds the window from fixes)."""
+    import contextlib
+    import io
+
+    from glio_tpu_torch import pipeline
+    from glio_tpu_torch.testing import reset_decisions
+    cfg = GlioConfig().replace(
+        shapes=ShapeConfig(max_imu_per_interval=40, scan_points=256, map_points=2048),
+        estimator=EstimatorConfig(local_map_width=8, sw_max_iter=4))
+    ep = simulate_episode(n_keyframes=24, scan_points=256, seed=21)
+    ep.imu_acc[12:16] += np.array([1.5, 0.0, 0.0])
+    ep.scan_valid[12:20] = False
+    anchor = np.asarray(cfg.initialization.anc_ecef)
+    station = np.asarray(cfg.initialization.station_ecef)
+    ep.gnss = simulate_gnss_epochs(ep.gt_p, ep.kf_time, anchor, station, psr_noise=0.5,
+                                   epoch_stride=1, seed=21)
+    outs = {}
+    for dev in ("cpu", cuda):
+        before = knn_mod.knn.launches
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            p, q = pipeline.replay_with_backend_fusion(
+                cfg, ep, ep.to_inputs(dev), anchor, 0.0, station, every=8, fusion_span=16,
+                debug=True)
+        outs[str(dev)] = (p, q, reset_decisions(buf.getvalue().splitlines()))
+        launched = knn_mod.knn.launches - before
+    assert launched == 24
+    (pc, _, dc), (pg, qg, dg) = outs["cpu"], outs[str(cuda)]
+    assert dg == dc == [(24, "direct RTK fix")]
+    assert np.isfinite(pg).all() and np.isfinite(qg).all()
+    np.testing.assert_allclose(pg, pc, rtol=0, atol=1e-2)

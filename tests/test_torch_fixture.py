@@ -19,6 +19,7 @@ import json
 import os
 
 import numpy as np
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -94,3 +95,48 @@ def test_pipeline_fixture_layout():
     for key in ("tc_batch_cov", "tc_batch_cov_f64"):
         assert fx[key].shape == (n, 10), key
     assert fx["n_lidar_factors"].shape == (n,) and fx["n_lidar_factors"][-1] > 100
+    _check_lc_rows(fx, n)
+
+
+def _check_lc_rows(fx, n):
+    """Stage 3's rows and the spread and gain its gates are made from."""
+    assert fx["lc_result"].shape == (n, 12) and np.isfinite(fx["lc_result"]).all()
+    np.testing.assert_array_equal(fx["lc_result"][:, 0], fx["tc_sw_result"][:, 0])
+    assert 0 < float(fx["lc_nudge_dp"]) < 1e-6 and 0 < float(fx["lc_gain_p_per_m"]) < 10
+
+
+def test_pipeline_sms1_fixture_has_stage3():
+    path = os.path.join(ROOT, "tests", "data", "pipeline_sms1_seed0.npz")
+    fx = np.load(path)
+    _check_lc_rows(fx, json.loads(str(fx["scenario_json"]))["n_keyframes"])
+
+
+STAGE3_FIXTURES = {   # file: keys every chip_smoke.py phase reads
+    "lc_T3493_seed4.npz": ("fixes", "ok", "gnss_valid", "p_lc", "q_lc", "nudge_fix",
+                           "nudge_dp", "nudge_dq"),
+    "backend_fusion_w50_seed21.npz": ("p_gated", "lines_gated", "nudge_dp", "decisions_stable"),
+    "backend_fusion_small_seed21.npz": ("p_gated", "p_off", "lines_gated", "lines_off",
+                                        "nudge_dp", "decisions_stable"),
+    "loop_closure_seed17.npz": ("cands", "icp_p", "icp_accepted", "p", "q", "n_edges",
+                                "nudge_dp", "nudge_f32_dp"),
+    "dense_pcd_seed19.npz": ("p_dense", "q_dense", "dense_valid", "pcd_points",
+                             "world_checksum"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(STAGE3_FIXTURES))
+def test_stage3_fixture_layout(name):
+    """Each file of ``scripts/make_torch_stage3_fixture.py`` holds what
+    ``chip_smoke.py`` reads, finite, under 1 MB, with the JAX spreads its
+    tolerances come from."""
+    path = os.path.join(ROOT, "tests", "data", name)
+    assert os.path.getsize(path) < 1 << 20
+    fx = np.load(path)
+    json.loads(str(fx["scenario_json"]))
+    for key in STAGE3_FIXTURES[name]:
+        a = fx[key]
+        if a.dtype.kind == "f":
+            assert np.isfinite(a).all(), key
+    if "decisions_stable" in fx.files:
+        from glio_tpu_torch.testing import reset_decisions
+        assert reset_decisions(json.loads(str(fx["lines_gated"]))), "no reset in JAX's run"

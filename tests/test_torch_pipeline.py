@@ -1,17 +1,20 @@
-"""Port parity: ``run_pipeline`` (stages 1 and 2) and the probe entry point.
+"""Port parity: ``run_pipeline`` (stages 1-3) and the probe entry point.
 
 A 6-keyframe episode (seed 1) at the small shape of
 ``tests/test_torch_sliding_window.py`` (width 8, scan 256, map 2048, 4 LM
 iterations) with simulated GNSS at every keyframe goes through
-``glio_tpu.pipeline.run_pipeline(run_lc=False)`` and the port's, and the
-CSVs they write are compared. JAX's pipeline solves the batch in its mixed
+``glio_tpu.pipeline.run_pipeline`` and the port's, with ``run_lc`` at its
+default (stage 3 runs: the episode has GNSS), and the CSVs they write are
+compared. JAX's pipeline solves the batch in its mixed
 precision; on so short a problem the batch is far from converged after 40
 iterations and JAX's mixed and f64 results end 0.13 m apart, so the JAX
 run here has its batch solve patched to ``mixed=False``, the port's
 arithmetic (nothing in the JAX package changes). Tolerances: times equal;
 positions 1e-4 m and angles 1e-3 degrees in both stages (the replay test's
 1e-4 m and 1e-5 on the quaternion; the f64 batch carries a 1e-9 m nudge of
-its input through as ~4e-9 m).
+its input through as ~4e-9 m). ``lc_result.csv`` is held to the same
+bounds: stage 3 starts from stage 1 and moves a difference there by about
+one to one (``lc_gain_p_per_m`` in ``tests/data/pipeline_seed0.npz``).
 """
 
 import dataclasses
@@ -63,9 +66,8 @@ def runs(tmp_path_factory):
     d_t = tmp_path_factory.mktemp("port")
     with unittest.mock.patch.object(JB, "optimize_batch",
                                     functools.partial(JB.optimize_batch, mixed=False)):
-        res_j = jax_run_pipeline(ep_j, CFG, out_dir=str(d_j), run_lc=False)
-    res_t = run_pipeline(_port_episode(), TCFG, out_dir=str(d_t), run_lc=False,
-                         device="cpu")
+        res_j = jax_run_pipeline(ep_j, CFG, out_dir=str(d_j))
+    res_t = run_pipeline(_port_episode(), TCFG, out_dir=str(d_t), device="cpu")
     return res_j, res_t, d_j, d_t
 
 
@@ -73,7 +75,7 @@ def _rows(path):
     return np.loadtxt(path, delimiter=",", ndmin=2)
 
 
-@pytest.mark.parametrize("name", ["tc_sw_result.csv", "tc_batch_result.csv"])
+@pytest.mark.parametrize("name", ["tc_sw_result.csv", "tc_batch_result.csv", "lc_result.csv"])
 def test_result_csv_matches_jax(runs, name, pos_tol=1e-4, deg_tol=1e-3):
     _, _, d_j, d_t = runs
     got, want = _rows(d_t / name), _rows(d_j / name)
@@ -108,42 +110,27 @@ def test_pipeline_result_fields(runs):
     res_j, res_t, _, _ = runs
     np.testing.assert_allclose(res_t.p_sw, res_j.p_sw, rtol=0, atol=1e-4)
     np.testing.assert_allclose(res_t.p_batch, res_j.p_batch, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(res_t.p_lc, res_j.p_lc, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(res_t.q_lc, res_j.q_lc, rtol=0, atol=1e-5)
     assert res_t.n_lidar_factors.shape == (6,) and res_t.n_lidar_factors[-1] > 100
-    assert res_t.p_lc is None and res_t.p_dense is None and res_t.n_loop_edges == 0
+    assert res_t.p_dense is None and res_t.n_loop_edges == 0
 
 
 def test_stage_one_only():
     res = run_pipeline(_port_episode(), TCFG, run_batch=False, run_lc=False, device="cpu",
                        sw_chunk=4)
-    assert res.p_batch is None and res.p_sw.shape == (6, 3)
+    assert res.p_batch is None and res.p_lc is None and res.p_sw.shape == (6, 3)
 
 
 def _with(cfg, **kw):
     return dataclasses.replace(cfg, estimator=dataclasses.replace(cfg.estimator, **kw))
 
 
-@pytest.mark.parametrize("case", ["run_lc_default", "run_lc_true", "loop_closure",
-                                  "save_pcd", "dense_frames", "backend_fusion",
-                                  "doppler_in_batch"])
+@pytest.mark.parametrize("case", ["doppler_in_batch"])
 def test_unported_options_raise_before_running(case):
-    ep = _port_episode()
-    cfg, kw = TCFG, dict(run_lc=False)
-    if case == "run_lc_default":
-        kw = {}
-    elif case == "run_lc_true":
-        kw = dict(run_lc=True)
-    elif case == "loop_closure":
-        cfg = _with(TCFG, loop_closure_on=True)
-    elif case == "save_pcd":
-        cfg = _with(TCFG, save_pcd=True)
-    elif case == "dense_frames":
-        ep.dense_rel_dp = np.zeros((5, 3, 3))
-    elif case == "backend_fusion":
-        kw["backend_fusion_every"] = 3
-    else:
-        cfg = _with(TCFG, doppler_in_batch=True)
+    cfg = _with(TCFG, doppler_in_batch=True)
     with pytest.raises(NotImplementedError):
-        run_pipeline(ep, cfg, device="cpu", **kw)
+        run_pipeline(_port_episode(), cfg, device="cpu")
 
 
 def test_probe_exits_1_without_cuda():
