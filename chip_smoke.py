@@ -6,7 +6,9 @@ Drives ``glio_tpu_torch``'s paths on ``cuda:0`` at full size and checks
 them: the sliding-window replay at the ``bench.py`` shapes, the toolchain
 probe, the batch stage at the UrbanNav Whampoa length, levels 0 and 1,
 ``run_pipeline`` (stages 1-3, at each level), stage 3 at the Whampoa
-length, backend fusion, loop closure, and the dense frames and map export.
+length, backend fusion, loop closure, the dense frames and map export, and
+a raw sensor log (a ROS1 bag) through ingest, the LiDAR front end and
+stage 1.
 Phases, each of which raises on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``); CUDA must be
@@ -116,7 +118,27 @@ Phases, each of which raises on failure:
     bound and ``topk(cdist)``;
 13. dense frames (``interpolate_segments`` on a ``dense_frames=3`` drive)
     and the map export (``assemble_map`` + ``write_pcd``) against
-    ``tests/data/dense_pcd_seed19.npz``.
+    ``tests/data/dense_pcd_seed19.npz``;
+14. raw input at the HDL-32E width (``scripts/full_pipeline_tpu.py:101-114``:
+    2048-point scans, 16,384-point map, window map width 50, 300 features
+    with ``diverse_select``, the default 32-line odometry): 20 raycast
+    32 x 1800 frames at 10 Hz (``glio_tpu_torch.testing.RAW_DRIVE``, made by
+    host processes and timed apart) written with the IMU stream into a bz2
+    ROS1 bag, then ``ingest.episode_from_rosbag`` on the card against
+    ``tests/data/frontend_hdl32_seed8.npz`` (made by
+    ``scripts/make_torch_frontend_fixture.py``): every frame's surf cloud
+    and the keyframe flags equal to JAX's, the odometry's poses and
+    relatives within 10x JAX's own spread under a +-1e-5 m nudge of p0 (the
+    f32 resolution of the map its plane fits see), n_matches within that
+    nudge's change, the episode's IMU bins, q0 and seeds within 1e-12; the
+    kNN twice a frame; then ``run_pipeline`` (stage 1): the kNN once a
+    keyframe, n_lidar_factors equal to JAX's, ``tc_sw_result.csv`` within 10x
+    JAX's own spread under a +-1e-9 m nudge of p0. The 5-NN against its
+    plain version bit for bit on the last frame's first ICP call (2048 x
+    16,384) and on the last keyframe's association (10,240 x 16,384), each
+    timed beside its FP32 bound and ``topk(cdist)``; preprocessing ms per
+    scan, odometry ms per frame and replay ms per keyframe against the 10 Hz
+    scan period.
 
 The batched 5-NN is also held to its plain version in phase 3, on
 ``glio_tpu_torch.testing.KNN_PAIR_CASES``, one launch each: an
@@ -144,14 +166,17 @@ import types
 import numpy as np
 import torch
 
+from glio_tpu_torch import config as config_mod
 from glio_tpu_torch import pipeline
 from glio_tpu_torch.config import EstimatorConfig, GlioConfig, ShapeConfig
+from glio_tpu_torch.data import ingest
 from glio_tpu_torch.data.simulator import (drifted_trajectory, random_walk_odometry,
                                            simulate_episode, simulate_gnss_epochs)
 from glio_tpu_torch.eval import pointcloud
 from glio_tpu_torch.lidar import neighbors
 from glio_tpu_torch.models import batch as batch_mod
-from glio_tpu_torch.models import lc_fusion, local_graph, loop_closure
+from glio_tpu_torch.models import lc_fusion, lidar_odometry, local_graph, loop_closure
+from glio_tpu_torch.models import sliding_window as sw_mod
 from glio_tpu_torch.models.sliding_window import SlidingWindowEstimator
 from glio_tpu_torch.ops import _build
 from glio_tpu_torch.ops import knn as knn_mod
@@ -159,9 +184,9 @@ from glio_tpu_torch.ops import probe as probe_mod
 from glio_tpu_torch.pipeline import run_pipeline
 from glio_tpu_torch.solver import banded
 from glio_tpu_torch.testing import (KNN_CASES, KNN_PAIR_CASES, cloud, dense_episode,
-                                    divergence_episode, gpu_clock_mhz, knn_bound_ms,
-                                    knn_pairs_bound_ms, loop_episode, reset_decisions,
-                                    time_device_ms)
+                                    divergence_episode, frames_digest, gpu_clock_mhz,
+                                    knn_bound_ms, knn_pairs_bound_ms, loop_episode, raw_config,
+                                    raw_drive, reset_decisions, time_device_ms, write_raw_bag)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "data", "sw_replay_w50_seed0.npz")
@@ -173,6 +198,11 @@ LC_FIXTURE = os.path.join(ROOT, "tests", "data", "lc_T3493_seed4.npz")
 FUSION_FIXTURE = os.path.join(ROOT, "tests", "data", "backend_fusion_w50_seed21.npz")
 LOOP_FIXTURE = os.path.join(ROOT, "tests", "data", "loop_closure_seed17.npz")
 DENSE_FIXTURE = os.path.join(ROOT, "tests", "data", "dense_pcd_seed19.npz")
+FRONTEND_FIXTURE = os.path.join(ROOT, "tests", "data", "frontend_hdl32_seed8.npz")
+RAYCAST_WORKERS = 8          # host processes that raycast the raw frames
+SCAN_PERIOD_MS = 100.0        # a 10 Hz scan
+SOLVE_CAP_MS = 15.0           # the reference odometry's solve cap (LidarOdometry.cpp:523-524)
+EPISODE_TOL = 1e-12
 SMS1_MASK_AGREE = 0.999       # share of association slots whose mask equals JAX's
 N_KEYFRAMES = 30
 P_TOL_M = 5e-3
@@ -1117,7 +1147,180 @@ def dense_phase(dev):
           f"checksums to 1e-12")
 
 
+class _Recorder:
+    """Wraps a module's ``knn`` and keeps each call's arguments (tensors
+    are not copied; no caller writes to them after the call)."""
+
+    def __init__(self, module):
+        self.module, self.calls = module, []
+
+    def __enter__(self):
+        self.knn = self.module.knn
+
+        def knn(*args, **kw):
+            self.calls.append(args)
+            return self.knn(*args, **kw)
+        self.module.knn = knn
+        return self
+
+    def __exit__(self, *exc):
+        self.module.knn = self.knn
+
+
+def _knn_record(dev, args, label):
+    """The 5-NN at one caller's real inputs: kernel against plain bit for
+    bit, then kernel, plain and ``topk(cdist)`` timed beside the FP32
+    bound of the valid pairs. Returns the record."""
+    args = [a.contiguous() for a in args]
+    d_k, i_k = knn_mod.knn(*args)
+    d_r, i_r = knn_mod.knn_reference(*args)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    check(torch.equal(i_k, i_r) and torch.equal(d_k, d_r),
+          f"knn at {label}: kernel and plain differ")
+    fin = torch.isfinite(d_r)
+    err = float((d_k[fin] - d_r[fin]).abs().max()) if fin.any() else 0.0
+    shape = f"{args[0].shape[0]} x {args[2].shape[0]}"
+    rec = {"shape": shape, "max_abs_err": err,
+           "valid_pairs": int(args[1].sum()) * int(args[3].sum())}
+    if dev.type == "cuda":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        rec.update(ms=time_device_ms(lambda: knn_mod.knn(*args)),
+                   plain_ms=time_device_ms(lambda: knn_mod.knn_reference(*args)),
+                   library_ms=time_device_ms(lambda: torch.topk(torch.cdist(args[0], args[2]), 5,
+                                                                largest=False)),
+                   bound_ms=knn_bound_ms(args[1], args[3], sms, gpu_clock_mhz()))
+        print(f"knn at {label} {shape}: kernel == plain bit for bit; kernel {rec['ms']:.4f} ms, "
+              f"plain torch {rec['plain_ms']:.4f} ms, topk(cdist) {rec['library_ms']:.4f} ms "
+              f"(yardstick), FP32 bound {rec['bound_ms']:.4f} ms for its "
+              f"{rec['valid_pairs']} valid pairs ({rec['bound_ms'] / rec['ms']:.2f} of it)")
+    else:
+        print(f"knn at {label} {shape}: kernel == plain (the CPU runs the plain version)")
+    return rec
+
+
+def raw_input_phase(dev):
+    """Raw sensor input at the HDL-32E width: a bz2 ROS1 bag of 20 raycast
+    32 x 1800 frames at 10 Hz with the IMU stream, through
+    ``ingest.episode_from_rosbag`` (organisation on the host, features and
+    odometry on ``dev``) and ``run_pipeline`` (stage 1 with
+    ``diverse_select``), against ``tests/data/frontend_hdl32_seed8.npz``.
+    Returns (odometry launches, replay launches, the kNN's records at the
+    odometry's and the window's shapes)."""
+    cfg = raw_config(config_mod)
+    fx, sc = _scenario(FRONTEND_FIXTURE, cfg)
+    n = sc["n_frames"]
+    t0 = time.perf_counter()
+    drive, frames, valid = raw_drive(sc, workers=RAYCAST_WORKERS)
+    raycast_s = time.perf_counter() - t0
+    check(frames_digest(frames, valid) == str(fx["frames_sha256"]),
+          "the raycast frames differ from the fixture's")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "drive.bag")
+        t0 = time.perf_counter()
+        write_raw_bag(path, drive, frames, valid, sc["t0"])
+        bag_s, bag_mb = time.perf_counter() - t0, os.path.getsize(path) / 2**20
+        print(f"raw input: {n} frames of {sc['rings']} x {sc['cols']} raycast in {raycast_s:.1f} s "
+              f"({RAYCAST_WORKERS} host processes; host work, not the pipeline's), digest equal to "
+              f"the fixture's; bz2 bag {bag_mb:.1f} MiB written in {bag_s:.1f} s")
+        rec = {}
+        knn_mod.knn.launches = 0
+        with _Recorder(lidar_odometry) as odo_calls:
+            ingest_s, ep = _sync_s(lambda: ingest.episode_from_rosbag(
+                path, cfg, n_cols=int(fx["n_cols"]), device=dev, record=rec))
+        odo_launches = knn_mod.knn.launches
+    check(dev.type != "cuda" or odo_launches == 2 * n,
+          f"knn launched {odo_launches} times in the odometry of {n} frames, not 2 each")
+
+    # The front end against JAX's.
+    surf, surf_valid = rec["surf"].cpu().numpy(), rec["surf_valid"].cpu().numpy()
+    odo = rec["odom"]
+    differ = (surf != fx["surf"]).any((1, 2)) | (surf_valid != fx["surf_valid"]).any(1)
+    check(not differ.any(), f"surf clouds differ from JAX's at frames {np.nonzero(differ)[0]}")
+    is_kf = odo.is_keyframe.cpu().numpy()
+    check(np.array_equal(is_kf, fx["is_keyframe"]),
+          f"keyframe flags {is_kf.astype(int)} != JAX {fx['is_keyframe'].astype(int)}")
+    # The odometry's plane fits see f32 world points, where JAX's f32 sums
+    # (FMA-fused by XLA's CPU) differ from the port's in the last bits; so
+    # the poses are held to 10x JAX's own spread under a +-1e-5 m nudge of
+    # p0 (the f32 resolution of the map), n_matches to that nudge's change.
+    reading = {}
+    for key in ("p", "q", "rel_p", "rel_q"):
+        got = getattr(odo, key).cpu().numpy()
+        reading[key] = float(np.abs(got - fx[f"odo_{key}"]).max())
+        tol = 10.0 * float(fx[f"odo_nudge5_d{key}"])
+        check(reading[key] <= tol, f"odometry {key}: max |d| {reading[key]} > {tol} "
+                                   f"(10x JAX's spread under a +-1e-5 m nudge)")
+    nm = odo.n_matches.cpu().numpy()
+    nudge_dn = np.abs(fx["nudge_n_matches"] - fx["n_matches"]).max(0)
+    dn = np.abs(nm - fx["n_matches"])
+    check((dn <= nudge_dn).all(), f"n_matches {nm.tolist()} against JAX {fx['n_matches'].tolist()} "
+                                  f"beyond JAX's own nudge spread {nudge_dn.tolist()}")
+    # The Episode: IMU bins, attitude and seeds to 1e-12; the dense channel
+    # is the odometry's relatives, held as they are.
+    for f in ("kf_time", "imu_acc", "imu_gyr", "imu_dt", "p0", "q0", "v0", "acc0", "gyr0"):
+        d = float(np.abs(np.asarray(getattr(ep, f), float) - fx["ep_" + f]).max())
+        check(d <= EPISODE_TOL, f"episode {f} differs from JAX's by {d}")
+    for f in ("imu_valid", "dense_rel_valid", "dense_time"):
+        check(np.array_equal(getattr(ep, f), fx["ep_" + f]), f"episode {f} differs from JAX's")
+    for f, key in (("dense_rel_dp", "rel_p"), ("dense_rel_dq", "rel_q")):
+        d = float(np.abs(getattr(ep, f) - fx["ep_" + f]).max())
+        tol = 10.0 * float(fx[f"odo_nudge5_d{key}"])
+        check(d <= tol, f"episode {f} differs from JAX's by {d} > {tol}")
+    check(np.array_equal(ep.scan, fx["surf"][fx["is_keyframe"]]), "episode scans differ")
+    T = ep.kf_time.shape[0]
+    pre_ms = 1e3 * rec["preprocess_s"] / n
+    odo_ms = 1e3 * rec["odometry_s"] / n
+    print(f"ingest {ingest_s:.2f} s: bag read + parse {rec['read_s']:.2f} s, organise "
+          f"{1e3 * rec['organize_s'] / n:.1f} ms per scan (host), preprocessing {pre_ms:.2f} ms "
+          f"per scan, odometry {odo_ms:.2f} ms per frame (against the {SCAN_PERIOD_MS:.0f} ms scan "
+          f"period; the reference caps its solve at {SOLVE_CAP_MS:.0f} ms); knn launches "
+          f"{odo_launches} ({odo_launches / n:.1f} per frame); {T} keyframes of {n} frames")
+    print(f"front end vs JAX: surf clouds and masks equal at all {n} frames "
+          f"({int(surf_valid.sum())} points), keyframe flags equal; odometry max |dp| "
+          f"{reading['p']:.3e} m (tol {10 * float(fx['odo_nudge5_dp']):.3e}; JAX's spread under "
+          f"+-1e-9 m {float(fx['odo_nudge9_dp']):.3e}), |dq| {reading['q']:.3e}; n_matches "
+          f"differ at {int((dn > 0).sum())} frames (JAX's own +-1e-5 m nudge changes "
+          f"{int((nudge_dn > 0).sum())}); episode IMU, q0 and seeds within {EPISODE_TOL}")
+    odo_rec = _knn_record(dev, odo_calls.calls[2 * (n - 1)], "the last frame's first ICP call")
+    odo_rec["launches_per_frame"] = odo_launches / n
+
+    # Stage 1 on the ingested episode.
+    with tempfile.TemporaryDirectory() as tmp, _Recorder(sw_mod) as sw_calls:
+        knn_mod.knn.launches = 0
+        run_s, res = _sync_s(lambda: run_pipeline(ep, cfg, out_dir=tmp, device=dev))
+        sw_launches = knn_mod.knn.launches
+        rows = np.loadtxt(os.path.join(tmp, "tc_sw_result.csv"), delimiter=",", ndmin=2)
+    check(dev.type != "cuda" or sw_launches == T,
+          f"knn launched {sw_launches} times in {T} keyframes of the raw-input replay")
+    check(np.isfinite(res.p_sw).all() and np.isfinite(res.q_sw).all(), "stage 1 not finite")
+    check(np.array_equal(res.n_lidar_factors, fx["n_lidar_factors"]),
+          f"n_lidar_factors {res.n_lidar_factors.tolist()} != JAX "
+          f"{fx['n_lidar_factors'].tolist()}")
+    want = fx["tc_sw_result"]
+    check(rows.shape == want.shape and np.array_equal(rows[:, :3], want[:, :3]),
+          "tc_sw_result rows or times differ from JAX's")
+    d_pos = max(np.abs(rows[:, 9:12] - want[:, 9:12]).max(), np.abs(rows[:, 5] - want[:, 5]).max())
+    d_ll = M_PER_DEG_LAT * np.abs(rows[:, 3:5] - want[:, 3:5]).max()
+    spread = float(fx["sw_nudge_dp"])
+    tol = 10.0 * spread
+    check(d_pos <= tol and d_ll <= tol + 1.2e-3,
+          f"tc_sw_result positions differ from JAX's by {d_pos} m, lat/lon {d_ll} m (tol {tol})")
+    why = ("" if tol <= P_TOL_M else
+           f" (above the replay phase's {P_TOL_M} m: a 1e-9 m nudge of p0 moves JAX's own "
+           f"stage 1 {spread:.3e} m on this drive)")
+    print(f"raw-input stage 1 ({T} keyframes, diverse_select, 300 features, scan 2048): "
+          f"{1e3 * run_s / T:.1f} ms per keyframe through run_pipeline ({run_s:.2f} s); knn "
+          f"launches {sw_launches} ({sw_launches / T:.1f} per keyframe); n_lidar_factors equal "
+          f"at all {T} steps; tc_sw_result max ENU/alt diff {d_pos:.3e} m, lat/lon {d_ll:.3e} m "
+          f"(tol {tol:.3e}: 10x JAX's own spread under a +-1e-9 m nudge of p0){why}")
+    win_rec = _knn_record(dev, sw_calls.calls[-1], "the window association, last keyframe")
+    win_rec["launches_per_keyframe"] = sw_launches / T
+    return odo_launches, sw_launches, odo_rec, win_rec
+
+
 def main():
+    t_start = time.perf_counter()
     dev = device_phase()
     print(f"build: {_build.build_all():.1f} s")
     knn_kern, copy_kern = kernel_phase(dev)
@@ -1134,10 +1337,16 @@ def main():
     loop_rec = loop_kernel(dev, *loop_ctx)
     loop_rec["launches"] = loop_launches
     dense_phase(dev)
+    odo_launches, raw_launches, odo_rec, win_rec = raw_input_phase(dev)
+    knn_kern["odometry_2048x16384"] = odo_rec
+    knn_kern["window_10240x16384"] = win_rec
     knn_kern["loop_verify"] = loop_rec
-    knn_kern["max_abs_err"] = max(knn_kern["max_abs_err"], loop_rec["max_abs_err"])
+    knn_kern["max_abs_err"] = max(knn_kern["max_abs_err"], loop_rec["max_abs_err"],
+                                  odo_rec["max_abs_err"], win_rec["max_abs_err"])
     knn_kern["launches_by_path"] = {"replay": launches, "backend_fusion": fusion_launches,
-                                    "loop_closure": loop_launches}
+                                    "loop_closure": loop_launches, "odometry": odo_launches,
+                                    "raw_input_replay": raw_launches}
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": [
         {"name": "knn5_f32", "route": "cuda", "source": "glio_tpu_torch/csrc/knn.cu",
          "replaces": "glio_tpu/ops/knn_pallas.py:30", "launches": launches, **knn_kern},

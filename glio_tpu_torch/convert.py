@@ -12,6 +12,10 @@ None of these imports jax: a caller turns JAX arrays into numpy first
 * ``batch_problem_from_numpy``: a batch problem with numpy leaves (a JAX
   ``BatchProblem`` through ``jax.tree.map(np.asarray, prob)``) →
   ``models.batch.BatchProblem`` on a device.
+* ``odom_carry_from_numpy`` / ``odom_carry_to_numpy``: the LiDAR odometry's
+  carry (``OdomCarry``), the state ``LidarOdometry.step`` takes from one
+  frame to the next. The front end has no weights; its configuration goes
+  through ``config_from_glio``.
 """
 
 import dataclasses
@@ -95,3 +99,15 @@ def batch_problem_from_numpy(prob, device):
         f: torch.as_tensor(np.array(getattr(prob, f)), device=device).to(
             dtypes.get(f, torch.float64))
         for f in BatchProblem._fields})
+
+
+def odom_carry_from_numpy(tree, device):
+    """An odometry carry with numpy leaves and the JAX ``OdomCarry``'s field
+    names → the port's ``OdomCarry`` on ``device``."""
+    from .models.lidar_odometry import OdomCarry
+    return _tensors(OdomCarry, tree, device)
+
+
+def odom_carry_to_numpy(carry):
+    """The same structure with numpy leaves."""
+    return type(carry)(*(a.detach().cpu().numpy() for a in carry))

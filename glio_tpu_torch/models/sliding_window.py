@@ -15,9 +15,8 @@ Per keyframe, ``SlidingWindowEstimator.step`` does what the JAX ``step`` of
 ``lax.scan`` over keyframes becomes a Python loop; every data-dependent
 choice inside a step is a ``torch.where`` on the device, so a step never
 waits on the host except inside ``torch.linalg.eigh`` in the
-marginalization. The slice covers the default configuration: GNSS factors
-out of the window (the reference's ``#if 0``) and global top-F feature
-selection.
+marginalization. GNSS factors stay out of the window (the reference's
+``#if 0``); feature selection is the global top-F or ``diverse_select``.
 """
 
 from typing import NamedTuple
@@ -98,6 +97,45 @@ class LidarMeas(NamedTuple):
     mask: torch.Tensor     # (K, F) bool
 
 
+def _top_k(w, k: int):
+    """``lax.top_k`` over the last axis: lax.top_k puts lower indices first
+    among equal values, as a stable descending sort does (torch.topk
+    promises no order, and the weight −1 is tied almost everywhere)."""
+    top_w, top_i = torch.sort(w, dim=-1, descending=True, stable=True)
+    return top_w[..., :k], top_i[..., :k]
+
+
+N_BUCKETS = 18          # 3 dominant-normal axes x 6 azimuth sextants
+
+
+def _diverse_top(w, normal, scans, Fsel: int):
+    """The JAX package's diverse selection (sliding_window.py:228-266): the
+    best F/2 of each keyframe by weight, then, with those masked, the best
+    D = F − F/2 of the union of each bucket's top ⌈D/18⌉, the buckets being
+    the fit normal's dominant axis × the lidar-frame point's azimuth
+    sextant. w (K, S), normal (K, S, 3) f32, scans (K, S, 3) f32."""
+    G = Fsel // 2
+    gw, gi = _top_k(w, G)
+    w2 = w.scatter(-1, gi, -1.0)                          # no duplicates
+    dom = torch.argmax(normal.abs(), dim=-1)
+    az = torch.atan2(scans[..., 1], scans[..., 0])
+    # The divisor is a tensor, as in neighbors.voxel_downsample: CUDA divides
+    # by a host scalar as a multiply by its reciprocal.
+    sextant_rad = torch.full_like(az, torch.pi / 3.0)
+    sect = torch.clamp((az + torch.pi) / sextant_rad, 0, 5).to(torch.int64)
+    bucket = dom * 6 + sect
+    D = Fsel - G
+    Fb = -(-D // N_BUCKETS)
+    b = torch.arange(N_BUCKETS, device=w.device)[:, None, None]
+    wa = torch.where(bucket[None] == b, w2[None], torch.full_like(w2, -1.0)[None])
+    twa, tia = _top_k(wa, Fb)                             # (18, K, Fb)
+    cw = twa.permute(1, 0, 2).reshape(w.shape[0], N_BUCKETS * Fb)
+    ci = tia.permute(1, 0, 2).reshape(w.shape[0], N_BUCKETS * Fb)
+    dw, sub = _top_k(cw, D)
+    di = torch.gather(ci, -1, sub)
+    return torch.cat([gw, dw], dim=-1), torch.cat([gi, di], dim=-1)
+
+
 def _shift_window(w):
     """Roll out the oldest frame and duplicate the newest slot."""
     return type(w)(*(torch.cat([a[1:], a[-1:]], dim=0) for a in w))
@@ -121,8 +159,6 @@ class SlidingWindowEstimator(nn.Module):
         est = cfg.estimator
         if est.gnss_in_sliding_window:
             raise NotImplementedError("GNSS factors in the window are not ported yet")
-        if cfg.feature_selection.diverse_select:
-            raise NotImplementedError("diverse_select is not ported yet")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
@@ -216,7 +252,8 @@ class SlidingWindowEstimator(nn.Module):
                    map_points, map_valid) -> LidarMeas:
         """5-NN plane correspondences for every window keyframe
         (``findCorrespondingSurfFeatures`` + a deterministic top-F by fit
-        weight in place of the reference's random subset)."""
+        weight, global or with ``diverse_select`` spread over normal
+        directions and azimuths, in place of the reference's random subset)."""
         est = self.cfg.estimator
         K, S = window.p.shape[0], self.S
         Fsel = min(self.cfg.feature_selection.feature_res_num, S)
@@ -232,10 +269,10 @@ class SlidingWindowEstimator(nn.Module):
         w = fit.weight
         good = fit.valid & valid_flat & (w > 0.3) & neigh_ok.all(dim=-1)
         w = torch.where(good, w, torch.full_like(w, -1.0)).reshape(K, S)
-        # lax.top_k puts lower indices first among equal weights; a stable
-        # descending sort does the same, and torch.topk promises no order.
-        top_w, top_i = torch.sort(w, dim=-1, descending=True, stable=True)
-        top_w, top_i = top_w[:, :Fsel], top_i[:, :Fsel]
+        if self.cfg.feature_selection.diverse_select:
+            top_w, top_i = _diverse_top(w, fit.normal.reshape(K, S, 3), window_scans, Fsel)
+        else:
+            top_w, top_i = _top_k(w, Fsel)
         flat_i = top_i + torch.arange(K, device=w.device)[:, None] * S
         return LidarMeas(
             points=window_scans.reshape(K * S, 3)[flat_i].to(F64),

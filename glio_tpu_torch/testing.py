@@ -9,11 +9,20 @@ correspondences hold. The scenarios of the stage-3 fixtures
 (``scripts/make_torch_stage3_fixture.py``) are built here too, from the
 simulator the caller passes (the JAX package's or the port's), so the
 fixture script, the CPU tests and ``chip_smoke.py`` build the same ones.
+So is the raw-input drive (``RAW_DRIVE``, ``raw_drive``): simulated 10 Hz
+range images written, with the IMU stream, into a ROS1 bag by this module's
+copy of the bag writer of ``tests/test_ingest.py`` (``serialize_imu``,
+``serialize_pointcloud2``, ``write_bag``), which the ingest path reads.
 Nothing on an estimation path imports this module.
 """
 
+import bz2
+import dataclasses
+import hashlib
+import multiprocessing
 import re
 import statistics
+import struct
 import subprocess
 
 import numpy as np
@@ -53,6 +62,8 @@ KNN_CASES = {
     # The odometry's ICP: a 1024- or 2048-point scan against its map (4, 2).
     "odometry_1024x16384": lambda r: (*cloud(r, 1024), *cloud(r, 16384)),
     "odometry_2048x16384": lambda r: (*cloud(r, 2048), *cloud(r, 16384)),
+    # The window association at 2048-point scans (raw input): 5 x 2048 queries.
+    "window_2048pt_10240x16384": lambda r: (*cloud(r, 10240), *cloud(r, 16384)),
     "ragged": lambda r: (*cloud(r, 77), *cloud(r, 1000)),
     "fewer_valid_than_k": lambda r: (*cloud(r, 300), *cloud(r, 64, valid_share=0.05)),
     "empty_map": lambda r: (*cloud(r, 50), *cloud(r, 0)),
@@ -216,3 +227,195 @@ def dense_episode(sc, simulate_episode):
                           dense_noise=sc["dense_noise"])
     rng = np.random.default_rng(sc["pose_seed"])
     return ep, ep.gt_p + rng.normal(scale=sc["pose_noise"], size=ep.gt_p.shape)
+
+
+# --- raw sensor input: a ROS1 bag of a simulated drive -------------------------------
+# The bag writer is a copy of ``tests/test_ingest.py``'s, byte for byte in
+# what it writes (``tests/test_torch_ingest.py`` holds the two equal).
+
+def _field(name: bytes, value: bytes) -> bytes:
+    kv = name + b"=" + value
+    return struct.pack("<I", len(kv)) + kv
+
+
+def _record(fields, data: bytes) -> bytes:
+    hdr = b"".join(_field(k, v) for k, v in fields)
+    return (struct.pack("<I", len(hdr)) + hdr
+            + struct.pack("<I", len(data)) + data)
+
+
+def _conn_record(cid: int, topic: str, typ: str) -> bytes:
+    data = (_field(b"topic", topic.encode())
+            + _field(b"type", typ.encode())
+            + _field(b"md5sum", b"0" * 32)
+            + _field(b"message_definition", b""))
+    return _record([(b"op", b"\x07"),
+                    (b"conn", struct.pack("<I", cid)),
+                    (b"topic", topic.encode())], data)
+
+
+def _msg_record(cid: int, t: float, raw: bytes) -> bytes:
+    secs = int(t)
+    nsecs = int(round((t - secs) * 1e9))
+    return _record([(b"op", b"\x02"),
+                    (b"conn", struct.pack("<I", cid)),
+                    (b"time", struct.pack("<II", secs, nsecs))], raw)
+
+
+def _ros_string(s: str) -> bytes:
+    b = s.encode()
+    return struct.pack("<I", len(b)) + b
+
+
+def _ros_header(t: float, frame: str = "f") -> bytes:
+    secs = int(t)
+    nsecs = int(round((t - secs) * 1e9))
+    return struct.pack("<III", 0, secs, nsecs) + _ros_string(frame)
+
+
+def serialize_imu(t: float, acc, gyr) -> bytes:
+    """A ``sensor_msgs/Imu`` message: identity orientation, zero covariances."""
+    cov = struct.pack("<9d", *([0.0] * 9))
+    return (_ros_header(t)
+            + struct.pack("<4d", 0.0, 0.0, 0.0, 1.0) + cov
+            + struct.pack("<3d", *gyr) + cov
+            + struct.pack("<3d", *acc) + cov)
+
+
+def serialize_pointcloud2(t: float, xyz: np.ndarray, ring: np.ndarray = None) -> bytes:
+    """An unorganised ``sensor_msgs/PointCloud2``: x, y, z f32 and, when
+    given, a uint16 ``ring`` field."""
+    n = xyz.shape[0]
+    fields = [("x", 0, 7), ("y", 4, 7), ("z", 8, 7)]
+    step = 12
+    if ring is not None:
+        fields.append(("ring", 12, 4))
+        step = 16
+    fb = struct.pack("<I", len(fields))
+    for name, off, dt in fields:
+        fb += _ros_string(name) + struct.pack("<IBI", off, dt, 1)
+    rec = np.zeros((n, step), np.uint8)
+    rec[:, 0:12] = xyz.astype(np.float32).view(np.uint8).reshape(n, 12)
+    if ring is not None:
+        rec[:, 12:14] = ring.astype(np.uint16).view(np.uint8).reshape(n, 2)
+    data = rec.tobytes()
+    return (_ros_header(t) + struct.pack("<II", 1, n) + fb
+            + b"\x00" + struct.pack("<II", step, step * n)
+            + struct.pack("<I", len(data)) + data + b"\x01")
+
+
+def write_bag(path, scan_msgs, imu_msgs, compress="bz2"):
+    """A rosbag v2.0 file of one chunk (``bz2`` or ``none``):
+    ``/velodyne_points`` and ``/imu/data``; scan_msgs / imu_msgs are lists
+    of (t, raw_bytes)."""
+    chunks = b"".join(
+        [_msg_record(1, t, raw) for t, raw in scan_msgs]
+        + [_msg_record(2, t, raw) for t, raw in imu_msgs])
+    payload = bz2.compress(chunks) if compress == "bz2" else chunks
+    with open(path, "wb") as f:
+        f.write(b"#ROSBAG V2.0\n")
+        f.write(_record([(b"op", b"\x03"),
+                         (b"index_pos", struct.pack("<Q", 0)),
+                         (b"conn_count", struct.pack("<I", 2)),
+                         (b"chunk_count", struct.pack("<I", 1))],
+                        b" " * 64))
+        f.write(_conn_record(1, "/velodyne_points", "sensor_msgs/PointCloud2"))
+        f.write(_conn_record(2, "/imu/data", "sensor_msgs/Imu"))
+        f.write(_record([(b"op", b"\x05"),
+                         (b"compression", compress.encode()),
+                         (b"size", struct.pack("<I", len(chunks)))],
+                        payload))
+
+
+def imu_messages(ep, t0):
+    """The IMU intervals of a simulated episode as a message stream, from
+    ``t0``: a pre-roll sample at the first keyframe (for gravity alignment),
+    then interval i's samples at their times in (kf_time[i-1], kf_time[i]]."""
+    msgs = [(t0, serialize_imu(t0, ep.acc0, ep.gyr0))]
+    for i in range(1, ep.kf_time.shape[0]):
+        ts = t0 + ep.kf_time[i - 1] + np.cumsum(ep.imu_dt[i])
+        for j in range(int(ep.imu_valid[i].sum())):
+            msgs.append((ts[j], serialize_imu(ts[j], ep.imu_acc[i, j], ep.imu_gyr[i, j])))
+    return msgs
+
+
+# The raw-input drive of ``chip_smoke.py`` and ``scripts/make_torch_frontend_fixture.py``:
+# the HDL-32E mission of ``scripts/full_pipeline_tpu.py:36-80`` cut to 20 frames
+# at 10 Hz (a keyframe drive at kf_dt 0.1 s, ~5 m/s), raycast against a corridor
+# of 300 walls.
+RAW_DRIVE = dict(n_frames=20, kf_dt=0.1, scan_points=2048, seed=8, scan_noise=0.01,
+                 circle_omega=0.12, n_walls=300, world_seed=8, rings=32, cols=1800,
+                 elev_lo=-0.535, elev_hi=0.186, max_range=80.0, raycast_seed=12,
+                 t0=1000.0)
+
+
+def raw_config(config_module):
+    """The raw-input configuration, ``scripts/full_pipeline_tpu.py:101-114``,
+    from a config module (the JAX package's or the port's): 2048-point
+    scans, a 16,384-point map, window map width 50, 15 LM iterations, 300
+    features with ``diverse_select``, the default 32-line odometry."""
+    c = config_module
+    base = c.GlioConfig()
+    return base.replace(
+        shapes=c.ShapeConfig(max_imu_per_interval=40, scan_points=2048, map_points=16384),
+        estimator=c.EstimatorConfig(local_map_width=50, sw_max_iter=15),
+        feature_selection=dataclasses.replace(base.feature_selection, feature_res_num=300,
+                                              diverse_select=True))
+
+
+def _raycast_frame(sc, f, world, p_w, R_wb):
+    """Frame f of the drive: the shared generator, advanced past the noise
+    draws of frames 0..f-1 (one normal per ray each), so that frames can be
+    made in any order or process."""
+    from .data.simulator import raycast_scan
+    rng = np.random.default_rng(sc["raycast_seed"])
+    for _ in range(f):
+        rng.normal(size=sc["rings"] * sc["cols"])
+    return raycast_scan(world, p_w, R_wb, n_rings=sc["rings"], n_cols=sc["cols"],
+                        elev_lo=sc["elev_lo"], elev_hi=sc["elev_hi"],
+                        max_range=sc["max_range"], rng=rng)
+
+
+def raw_drive(sc, workers: int = 1):
+    """The drive ``sc`` (``RAW_DRIVE``'s keys), from the port's copy of the
+    simulator (bit-equal to the JAX package's): (episode, frames
+    (N, rings, cols, 3) f32, valid (N, rings, cols)). Frame f is taken at
+    keyframe f's true pose, from the IMU-rate truth; ``workers`` processes
+    raycast the frames (the same frames for any count)."""
+    from .data.simulator import _quat_rotmat, corridor_world, simulate_episode
+    n = sc["n_frames"]
+    ep, dense = simulate_episode(
+        n_keyframes=n, kf_dt=sc["kf_dt"], scan_points=sc["scan_points"], seed=sc["seed"],
+        scan_noise=sc["scan_noise"], q_lb=(1, 0, 0, 0), t_lb=(0, 0, 0),
+        circle_omega=sc["circle_omega"], return_dense_gt=True)
+    step = (dense["p"].shape[0] - 1) // n          # IMU samples per frame
+    world = corridor_world(dense["p"][::step], n_walls=sc["n_walls"], seed=sc["world_seed"])
+    jobs = [(sc, f, world, dense["p"][j], _quat_rotmat(dense["q"][j]))
+            for f, j in enumerate(dense["kf_idx"][:n])]
+    if workers > 1:
+        ctx = multiprocessing.get_context("spawn")
+        with ctx.Pool(workers) as pool:
+            out = pool.starmap(_raycast_frame, jobs)
+    else:
+        out = [_raycast_frame(*job) for job in jobs]
+    frames = np.stack([img for img, _ in out])
+    valid = np.stack([v for _, v in out])
+    # Snap to a 2^-16 m grid (exact in f32 below 256 m): the host's BLAS
+    # moves the raycast's last bits (1e-17 m on near-zero coordinates between
+    # two x86 hosts), and the snapped frames are the same on any host.
+    frames = np.round(frames * 65536.0) / np.float32(65536.0)
+    return ep, frames, valid
+
+
+def frames_digest(frames, valid):
+    """sha256 of a drive's frames and masks, hex."""
+    return hashlib.sha256(np.ascontiguousarray(frames).tobytes()
+                          + np.ascontiguousarray(valid).tobytes()).hexdigest()
+
+
+def write_raw_bag(path, ep, frames, valid, t0, compress="bz2"):
+    """Frames as unorganised clouds (the valid returns, as a LiDAR
+    publishes them) at their keyframe times from ``t0``, with the IMU stream."""
+    scans = [(t0 + ep.kf_time[f], serialize_pointcloud2(t0 + ep.kf_time[f], frames[f][valid[f]]))
+             for f in range(frames.shape[0])]
+    write_bag(path, scans, imu_messages(ep, t0), compress)

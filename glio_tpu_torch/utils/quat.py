@@ -155,6 +155,21 @@ def to_ypr(q):
     return torch.stack([y, p, r], dim=-1)
 
 
+def slerp(q0, q1, t):
+    """Spherical interpolation, broadcasting over leading axes (the deskew
+    path, ``Preprocessing.cpp:176-200``); t (..., 1)."""
+    d = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(d < 0, -q1, q1)
+    d = torch.abs(d)
+    theta = torch.acos(torch.clamp(d, -1.0, 1.0))
+    sin_theta = torch.sin(theta)
+    use_lerp = sin_theta < 1e-6
+    safe_sin = torch.where(use_lerp, torch.ones_like(sin_theta), sin_theta)
+    w0 = torch.where(use_lerp, 1.0 - t, torch.sin((1.0 - t) * theta) / safe_sin)
+    w1 = torch.where(use_lerp, t, torch.sin(t * theta) / safe_sin)
+    return normalize(w0 * q0 + w1 * q1)
+
+
 def slerp_np(q0, q1, t):
     """Spherical interpolation of one quaternion pair, numpy, for host code
     (the trajectory despiker)."""

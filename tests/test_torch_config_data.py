@@ -79,6 +79,28 @@ def test_simulator_options_bit_identical(options):
     assert (t.dense_rel_dp is not None) == ("dense_frames" in options)
 
 
+def test_range_image_helpers_bit_identical():
+    """``corridor_world``, ``raycast_scan`` and ``to_range_image``: the port's
+    copies make the JAX package's worlds and range images, bit for bit."""
+    from glio_tpu.data import simulator as jsim
+    from glio_tpu_torch.data import simulator as tsim
+    ep = jax_simulate(n_keyframes=4, kf_dt=0.1, scan_points=300, seed=8, circle_omega=0.12)
+    wj = jsim.corridor_world(ep.gt_p, n_walls=60, seed=8)
+    wt = tsim.corridor_world(ep.gt_p, n_walls=60, seed=8)
+    for attr in ("centers", "normals", "half", "t1", "t2"):
+        np.testing.assert_array_equal(getattr(wt, attr), getattr(wj, attr), err_msg=attr)
+    R = jsim._quat_rotmat(ep.gt_q[2])
+    kw = dict(n_rings=16, n_cols=240, elev_lo=-0.4, elev_hi=0.2, max_range=70.0)
+    img_j, v_j = jsim.raycast_scan(wj, ep.gt_p[2], R, rng=np.random.default_rng(3), **kw)
+    img_t, v_t = tsim.raycast_scan(wt, ep.gt_p[2], R, rng=np.random.default_rng(3), **kw)
+    np.testing.assert_array_equal(img_t, img_j)
+    np.testing.assert_array_equal(v_t, v_j)
+    assert v_t.sum() > 1000
+    for a, b in zip(tsim.to_range_image(ep.scan[0], ep.scan_valid[0]),
+                    jsim.to_range_image(ep.scan[0], ep.scan_valid[0])):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_episode_to_inputs_dtypes():
     import torch
     inp = port_simulate(n_keyframes=3, scan_points=64, seed=1).to_inputs("cpu")

@@ -1,8 +1,9 @@
 """The port's CUDA path on the card: the k-NN kernel (single problems and
 batches of keyframe pairs, the loop-closure ICP's 1024 x 25,600 among them)
 and the copy kernel against their plain versions, bit for bit, the probe,
-and the replay, the batch stage, batch level 1, stage 3 and backend fusion
-on the card against the same code on the CPU.
+the replay, the batch stage, batch level 1, stage 3, backend fusion, the
+LOAM features and the LiDAR odometry on the card against the same code on
+the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 no jax, so it runs on a machine that has only torch:
@@ -341,3 +342,60 @@ def test_backend_fusion_on_card_matches_cpu(cuda):
     assert dg == dc == [(24, "direct RTK fix")]
     assert np.isfinite(pg).all() and np.isfinite(qg).all()
     np.testing.assert_allclose(pg, pc, rtol=0, atol=1e-2)
+
+
+def _raw_frames(n, seed=3):
+    """``n`` 16 x 360 raycast frames of a 10 Hz drive (the port's simulator)."""
+    from glio_tpu_torch.data.simulator import PlaneWorld, _quat_rotmat, raycast_scan
+    ep = simulate_episode(n_keyframes=n, kf_dt=0.1, scan_points=256, seed=seed,
+                          scan_noise=0.01, q_lb=(1, 0, 0, 0), t_lb=(0, 0, 0))
+    world = PlaneWorld(extent=max(200.0, np.abs(ep.gt_p).max() + 80.0), seed=seed)
+    frames = [raycast_scan(world, ep.gt_p[k], _quat_rotmat(ep.gt_q[k]), n_rings=16, n_cols=360,
+                           rng=np.random.default_rng(100 + k)) for k in range(n)]
+    return ep, frames
+
+
+def test_features_on_card_equal_cpu(cuda):
+    """LOAM curvature, masks and the feature clouds on the card, bit for bit
+    the CPU's (the curvature adds in a fixed order on both)."""
+    from glio_tpu_torch.lidar import features
+    from glio_tpu_torch.models.preprocessing import make_preprocessor
+    _, frames = _raw_frames(2)
+    for img, iv in frames:
+        out_c = features.extract_features(torch.tensor(img), torch.tensor(iv))
+        out_g = features.extract_features(torch.tensor(img, device=cuda),
+                                          torch.tensor(iv, device=cuda))
+        for k in out_c:
+            assert torch.equal(out_g[k].cpu(), out_c[k]), k
+        fc = make_preprocessor(GlioConfig(), "cpu", surf_out=512)(img, iv)
+        fg = make_preprocessor(GlioConfig(), cuda, surf_out=512)(img, iv)
+        for f in fc._fields:
+            assert torch.equal(getattr(fg, f).cpu(), getattr(fc, f)), f
+        assert fg.surf.device.type == "cuda" and fc.surf_valid.sum() > 100
+
+
+def test_odometry_on_card_matches_cpu(cuda):
+    """A 4-frame odometry run on the card against the CPU: the kNN twice a
+    frame, the keyframe flags equal, the poses within 10x the CPU run's own
+    spread under a +-1e-5 m nudge of p0 (the plane fits' f32 sums add in
+    another order on the card, a change at the f32 resolution of the map
+    that the ICP carries on, as a nudge there does)."""
+    from glio_tpu_torch.models.lidar_odometry import make_odometry
+    from glio_tpu_torch.models.preprocessing import make_preprocessor
+    cfg = GlioConfig().replace(shapes=ShapeConfig(scan_points=512, map_points=2048))
+    ep, frames = _raw_frames(4)
+    pre = make_preprocessor(cfg, "cpu", surf_out=512)
+    feats = [pre(img, iv) for img, iv in frames]
+    scans = torch.stack([f.surf for f in feats])
+    valid = torch.stack([f.surf_valid for f in feats])
+    before = knn_mod.knn.launches
+    out_g = make_odometry(cfg, cuda)(scans.to(cuda), valid.to(cuda), ep.gt_p[0], ep.gt_q[0])
+    torch.cuda.synchronize()
+    assert knn_mod.knn.launches - before == 8
+    odo_c = make_odometry(cfg, "cpu")
+    out_c = odo_c(scans, valid, ep.gt_p[0], ep.gt_q[0])
+    spread = max(float((odo_c(scans, valid, ep.gt_p[0] + s * 1e-5, ep.gt_q[0]).p - out_c.p)
+                       .abs().max()) for s in (1, -1))
+    assert torch.equal(out_g.is_keyframe.cpu(), out_c.is_keyframe)
+    assert float((out_g.p.cpu() - out_c.p).abs().max()) <= 10 * spread
+    assert int(out_c.n_matches[-1]) > 300

@@ -140,3 +140,22 @@ def test_stage3_fixture_layout(name):
     if "decisions_stable" in fx.files:
         from glio_tpu_torch.testing import reset_decisions
         assert reset_decisions(json.loads(str(fx["lines_gated"]))), "no reset in JAX's run"
+
+
+def test_frontend_fixture_layout():
+    """``tests/data/frontend_hdl32_seed8.npz`` (``scripts/make_torch_frontend_fixture.py``,
+    ~2 min of JAX, not remade here) was made with the raw-input configuration
+    and drive ``chip_smoke.py`` reads, and its episode is its front end's."""
+    from glio_tpu import config as jcfg
+    from glio_tpu_torch.testing import RAW_DRIVE, raw_config
+    fx = np.load(os.path.join(ROOT, "tests", "data", "frontend_hdl32_seed8.npz"))
+    assert json.loads(str(fx["config_json"])) == json.loads(
+        json.dumps(dataclasses.asdict(raw_config(jcfg))))
+    assert json.loads(str(fx["scenario_json"])) == RAW_DRIVE
+    n, S = RAW_DRIVE["n_frames"], RAW_DRIVE["scan_points"]
+    assert fx["surf"].shape == (n, S, 3) and fx["surf_valid"].shape == (n, S)
+    kf = fx["is_keyframe"]
+    T = int(kf.sum())
+    assert fx["ep_imu_acc"].shape[0] == T and fx["tc_sw_result"].shape == (T, 12)
+    assert fx["n_lidar_factors"].shape == (T,) and fx["nudge_n_matches"].shape == (4, n)
+    assert float(fx["odo_nudge9_dp"]) < float(fx["odo_nudge5_dp"]) < 1e-2

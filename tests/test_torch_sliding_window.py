@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from glio_tpu.config import EstimatorConfig, FeatureSelectionConfig, GlioConfig, ShapeConfig
+from glio_tpu.config import EstimatorConfig, GlioConfig, ShapeConfig
 from glio_tpu.data.simulator import simulate_episode
 from glio_tpu.models.sliding_window import make_replay as jax_make_replay
 from glio_tpu_torch import convert
@@ -111,7 +111,6 @@ def test_inputs_match_jax_episode(episode):
 
 @pytest.mark.parametrize("override", [
     {"estimator": EstimatorConfig(gnss_in_sliding_window=True)},
-    {"feature_selection": FeatureSelectionConfig(diverse_select=True)},
 ])
 def test_unported_options_raise(override):
     with pytest.raises(NotImplementedError):
