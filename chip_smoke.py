@@ -6,9 +6,10 @@ Drives ``glio_tpu_torch``'s paths on ``cuda:0`` at full size and checks
 them: the sliding-window replay at the ``bench.py`` shapes, the toolchain
 probe, the batch stage at the UrbanNav Whampoa length, levels 0 and 1,
 ``run_pipeline`` (stages 1-3, at each level), stage 3 at the Whampoa
-length, backend fusion, loop closure, the dense frames and map export, and
-a raw sensor log (a ROS1 bag) through ingest, the LiDAR front end and
-stage 1.
+length, backend fusion, loop closure, the dense frames and map export, a
+raw sensor log (a ROS1 bag) through ingest, the LiDAR front end and stage 1,
+and GNSS: RINEX files through the converter, SPP on the card, the batch with
+Doppler rows and ``chol_pcg``, and GNSS in the window.
 Phases, each of which raises on failure:
 
 1. device: the card's name and power limit (``nvidia-smi``); CUDA must be
@@ -140,6 +141,30 @@ Phases, each of which raises on failure:
     scan, odometry ms per frame and replay ms per keyframe against the 10 Hz
     scan period.
 
+15. GNSS, against ``tests/data/gnss_T3493_seed15.npz``,
+    ``long_run_seed3.npz`` and ``window_doppler_seed0.npz`` (made by
+    ``scripts/make_torch_gnss_fixture.py``): RINEX 3 obs and nav files of the
+    batch phase's drive (``testing.write_synthetic_rinex``: 1165 epochs at
+    1 Hz, 8 GPS + 6 BDS satellites with a BDS GEO) held to the fixture's
+    sha256, converted by ``gnss.converter.convert`` with the native decoder
+    built by g++ (decode and convert seconds), slots, masks, masters and
+    sat_id equal to JAX's and the float fields' checksums within 1e-12; SPP
+    of all epochs in one call (ok masks equal, fixes within 1e-6 m of JAX's,
+    whose own spread under nudges is 4.2e-8 m), Doppler velocity and DOP,
+    timed by CUDA events, RMSE to the truth; the level-0 batch with Doppler
+    rows at T = 3493 on those epochs (4 stages x 10 LM iterations, bench
+    robust options): direct twice, bit-identical and within 10x JAX's own
+    spread under a +-1e-9 m nudge of the odometry, then ``chol_pcg`` (14 CG
+    iterations, 1.1e-2 m short of the exact solve), within 10x JAX's own
+    spread under a 1-ulp rescaling of its f32 preconditioner;
+    ``scripts/long_run.py``'s configuration (window width 20, DD rows in the
+    window, ``chol_pcg``) on 30 keyframes of ``simulate_episode(seed=3)``
+    through ``run_pipeline(..., backend_fusion_every=10)``: the kNN once a
+    keyframe, n_lidar_factors and reset decisions equal to JAX's, the two
+    CSVs within 10x JAX's nudge spread, ms per keyframe; and phase 7's
+    episode with DD and Doppler rows in the window and the batch: the same
+    gates and the window's receiver clock drift within 10x JAX's spread.
+
 The batched 5-NN is also held to its plain version in phase 3, on
 ``glio_tpu_torch.testing.KNN_PAIR_CASES``, one launch each: an
 all-invalid map frame, ragged and unaligned frames of 1000 and 1001
@@ -172,13 +197,19 @@ from glio_tpu_torch.config import EstimatorConfig, GlioConfig, ShapeConfig
 from glio_tpu_torch.data import ingest
 from glio_tpu_torch.data.simulator import (drifted_trajectory, random_walk_odometry,
                                            simulate_episode, simulate_gnss_epochs)
+from glio_tpu_torch import testing
 from glio_tpu_torch.eval import pointcloud
+from glio_tpu_torch.gnss import converter as gnss_converter
+from glio_tpu_torch.gnss import native as gnss_native
+from glio_tpu_torch.gnss import spp as gnss_spp
+from glio_tpu_torch.gnss import tools as gnss_tools
 from glio_tpu_torch.lidar import neighbors
 from glio_tpu_torch.models import batch as batch_mod
 from glio_tpu_torch.models import lc_fusion, lidar_odometry, local_graph, loop_closure
 from glio_tpu_torch.models import sliding_window as sw_mod
 from glio_tpu_torch.models.sliding_window import SlidingWindowEstimator
 from glio_tpu_torch.ops import _build
+from glio_tpu_torch.ops import band_chol as band_chol_mod
 from glio_tpu_torch.ops import knn as knn_mod
 from glio_tpu_torch.ops import probe as probe_mod
 from glio_tpu_torch.pipeline import run_pipeline
@@ -199,6 +230,12 @@ FUSION_FIXTURE = os.path.join(ROOT, "tests", "data", "backend_fusion_w50_seed21.
 LOOP_FIXTURE = os.path.join(ROOT, "tests", "data", "loop_closure_seed17.npz")
 DENSE_FIXTURE = os.path.join(ROOT, "tests", "data", "dense_pcd_seed19.npz")
 FRONTEND_FIXTURE = os.path.join(ROOT, "tests", "data", "frontend_hdl32_seed8.npz")
+GNSS_FIXTURE = os.path.join(ROOT, "tests", "data", "gnss_T3493_seed15.npz")
+LONG_RUN_FIXTURE = os.path.join(ROOT, "tests", "data", "long_run_seed3.npz")
+DOPP_WINDOW_FIXTURE = os.path.join(ROOT, "tests", "data", "window_doppler_seed0.npz")
+SPP_TOL_M = 1e-6              # SPP fixes, Doppler velocities (m/s) against JAX's
+GNSS_SUM_RTOL = 1e-12         # checksums of converted epochs and problems (round-off)
+BAND_CHOL_RTOL = 2e-5         # f32 band factor, kernel vs plain, of its largest entry
 RAYCAST_WORKERS = 8          # host processes that raycast the raw frames
 SCAN_PERIOD_MS = 100.0        # a 10 Hz scan
 SOLVE_CAP_MS = 15.0           # the reference odometry's solve cap (LidarOdometry.cpp:523-524)
@@ -955,6 +992,24 @@ def lc_phase(dev):
           f"{_rmse(p2, p_true):.4f} m (JAX {float(fx['rmse_lc']):.4f} m)")
 
 
+@contextlib.contextmanager
+def _timed_fusion():
+    """Within the block, each backend-fusion solve (``pipeline._fusion_window``)
+    is timed; yields the list of their seconds."""
+    fusion_s = []
+    window = pipeline._fusion_window
+
+    def timed_window(*args, **kw):
+        s, out = _sync_s(lambda: window(*args, **kw))
+        fusion_s.append(s)
+        return out
+    pipeline._fusion_window = timed_window
+    try:
+        yield fusion_s
+    finally:
+        pipeline._fusion_window = window
+
+
 def fusion_phase(dev):
     """Backend fusion at the bench shapes on the divergence scenario, against
     ``tests/data/backend_fusion_w50_seed21.npz``. Returns the kNN launches."""
@@ -966,25 +1021,13 @@ def fusion_phase(dev):
     station = np.asarray(cfg.initialization.station_ecef)
     ep.gnss = simulate_gnss_epochs(ep.gt_p, ep.kf_time, anchor, station, psr_noise=0.5,
                                    epoch_stride=sc["epoch_stride"], seed=sc["seed"])
-    fusion_s = []
-    window = pipeline._fusion_window
-
-    def timed_window(*args, **kw):
-        t, out = _sync_s(lambda: window(*args, **kw))
-        fusion_s.append(t)
-        return out
-
     buf = io.StringIO()
-    pipeline._fusion_window = timed_window
-    try:
+    with _timed_fusion() as fusion_s, contextlib.redirect_stdout(buf):
         knn_mod.knn.launches = 0
-        with contextlib.redirect_stdout(buf):
-            run_s, (p, q) = _sync_s(lambda: pipeline.replay_with_backend_fusion(
-                cfg, ep, ep.to_inputs(dev), anchor, 0.0, station, every=sc["every"],
-                fusion_span=sc["fusion_span"], debug=True))
+        run_s, (p, q) = _sync_s(lambda: pipeline.replay_with_backend_fusion(
+            cfg, ep, ep.to_inputs(dev), anchor, 0.0, station, every=sc["every"],
+            fusion_span=sc["fusion_span"], debug=True))
         launches = knn_mod.knn.launches
-    finally:
-        pipeline._fusion_window = window
     lines = buf.getvalue().splitlines()
     # (The plain version on the CPU launches nothing: the CPU rehearsal.)
     check(dev.type != "cuda" or launches == T,
@@ -1319,6 +1362,386 @@ def raw_input_phase(dev):
     return odo_launches, sw_launches, odo_rec, win_rec
 
 
+# --- phase 15: GNSS ---------------------------------------------------------------------
+
+def _gnss_scenario(path, cfg, want_sc):
+    fx, sc = _scenario(path, cfg)
+    check(sc == json.loads(json.dumps(want_sc)),
+          f"{os.path.basename(path)} was made for another scenario")
+    return fx, sc
+
+
+def rinex_phase(dev):
+    """15.1: the synthetic RINEX of the Whampoa-length drive written, held
+    to the fixture's digest, and converted (native decoder where g++ is) into
+    ``GnssEpochs`` held to JAX's per-field digests. Returns (fixture, the
+    drive, the epochs)."""
+    cfg = testing.gnss_batch_config(config_mod)
+    fx, sc = _gnss_scenario(GNSS_FIXTURE, cfg, testing.GNSS_DRIVE)
+    station = np.asarray(cfg.initialization.station_ecef)
+    drive = testing.gnss_drive(sc)
+    t_gps, rover = drive[4], drive[5]
+    with tempfile.TemporaryDirectory() as tmp:
+        obs, nav = os.path.join(tmp, "drive.obs"), os.path.join(tmp, "drive.nav")
+        write_s, info = _sync_s(lambda: testing.write_synthetic_rinex(
+            obs, nav, t_gps, rover, seed=sc["seed"], n_gps=sc["n_gps"], n_bds=sc["n_bds"],
+            psr_noise=sc["psr_noise"]))
+        digest = testing.files_digest(obs, nav)
+        check(digest == str(fx["rinex_sha256"]),
+              f"the RINEX files differ from the fixture's: sha256 {digest}")
+        native = gnss_native.available()
+        tm = {}
+        g = gnss_converter.convert(obs, nav, station, timings=tm)
+        size_mb = (os.path.getsize(obs) + os.path.getsize(nav)) / 2**20
+    got, want = testing.gnss_fields_digest(g), json.loads(str(fx["gnss_digest_json"]))
+    check(sorted(got) == sorted(want), f"GnssEpochs fields {sorted(got)} != JAX {sorted(want)}")
+    for f, w in want.items():
+        if isinstance(w, str):
+            check(got[f] == w, f"GnssEpochs.{f} differs from JAX's")
+        else:
+            check(np.allclose(got[f], w, rtol=GNSS_SUM_RTOL, atol=0),
+                  f"GnssEpochs.{f} checksums {got[f]} != JAX {w}")
+    E, n_rec = g.time.shape[0], int(g.valid.sum())
+    print(f"gnss input: {E} epochs at 1 Hz, satellites {' '.join(info['sats'])}; RINEX 3 obs + "
+          f"nav ({size_mb:.1f} MiB) written in {write_s:.2f} s (host), digest equal to the "
+          f"fixture's; convert {tm['decode'] + tm['convert']:.2f} s: decode {tm['decode']:.2f} s "
+          f"({'native decoder' if native else 'Python parser'}), the rest {tm['convert']:.2f} s "
+          f"(host); {n_rec} records in {g.sat_pos.shape[1]} slots; slots, masks, masters and "
+          f"sat_id equal to JAX's, float fields' checksums within {GNSS_SUM_RTOL} (rel)")
+    return fx, drive, g
+
+
+def spp_phase(dev, fx, drive, g):
+    """15.2: SPP of every epoch in one call on the card, then Doppler
+    velocity and DOP at the fixes, against JAX's."""
+    rover = drive[5]
+    station = np.asarray(GlioConfig().initialization.station_ecef)
+    t = lambda a: torch.as_tensor(np.asarray(a), device=dev)
+    args = (t(g.sat_pos), t(g.psr_rov_corr), t(g.system.astype(np.int32)), t(g.valid),
+            t(g.elevation), t(g.snr), t(station))
+    x, clk, ok, rms = gnss_spp.solve_epochs(*args)
+    v, ddt = gnss_spp.doppler_velocity(t(g.sat_pos), t(g.sat_vel), t(g.dopp_rov),
+                                       args[2], args[3], args[4], args[5], x)
+    dops = torch.stack(gnss_tools.dop(x, args[0], args[3]), -1)
+    ok = ok.cpu().numpy()
+    check(np.array_equal(ok, fx["spp_ok"]), f"SPP ok masks differ from JAX's ({int(ok.sum())} "
+                                            f"against {int(fx['spp_ok'].sum())})")
+    xs = x.cpu().numpy()
+    dx = float(np.abs(xs - fx["spp_x"])[ok].max())
+    check(dx <= SPP_TOL_M, f"SPP: max |x - JAX| {dx} m > {SPP_TOL_M} m")
+    dv = float(np.abs(v.cpu().numpy() - fx["dopp_v"]).max())
+    dd = float(np.abs(ddt.cpu().numpy() - fx["dopp_ddt"]).max())
+    ddop = float((np.abs(dops.cpu().numpy() - fx["dop"]) / np.abs(fx["dop"])).max())
+    check(dv <= SPP_TOL_M and dd <= SPP_TOL_M and ddop <= 1e-9,
+          f"Doppler velocity / DOP differ from JAX's: {dv} m/s, {dd} m/s, {ddop} (rel)")
+    if dev.type == "cuda":
+        spp_ms = time_device_ms(lambda: gnss_spp.solve_epochs(*args))
+        vel_ms = time_device_ms(lambda: gnss_spp.doppler_velocity(
+            args[0], t(g.sat_vel), t(g.dopp_rov), args[2], args[3], args[4], args[5], x))
+        dop_ms = time_device_ms(lambda: gnss_tools.dop(x, args[0], args[3]))
+        times = (f"SPP {spp_ms:.3f} ms, Doppler velocity {vel_ms:.3f} ms, DOP {dop_ms:.3f} ms "
+                 f"(CUDA events, median of 20)")
+    else:
+        spp_s, _ = _sync_s(lambda: gnss_spp.solve_epochs(*args))
+        times = f"SPP {1e3 * spp_s:.1f} ms (CPU wall clock)"
+    rmse = _rmse(xs, rover)
+    print(f"gnss SPP of all {ok.shape[0]} epochs in one call: {times}; ok masks equal to JAX's "
+          f"({int(ok.sum())} ok), max |x - JAX| {dx:.3e} m (tol {SPP_TOL_M}; JAX's own spread "
+          f"under the nudges {float(fx['spp_nudge_dp']):.3e} m), velocity {dv:.3e} m/s, DOP "
+          f"{ddop:.3e} (rel); RMSE vs truth {rmse:.3f} m (JAX {float(fx['spp_rmse']):.3f}), "
+          f"median PDOP {float(np.median(dops[:, 1].cpu().numpy())):.2f}")
+
+
+def gnss_batch_phase(dev, fx, drive, g):
+    """15.3: level 0 with Doppler rows at T = 3493 on the converted epochs:
+    the direct solver twice (bit-identical), then ``chol_pcg``, each held to
+    JAX's (see the gates below), its f32 factor's kernel launched once an LM
+    iteration. Returns that kernel's record (``band_chol_record``)."""
+    kf_time, p_true, q_true, p_odo = drive[:4]
+    cfg = testing.gnss_batch_config(config_mod)
+    anchor = np.asarray(cfg.initialization.anc_ecef)
+    station = np.asarray(cfg.initialization.station_ecef)
+    build_s, prob = _sync_s(lambda: batch_mod.build_problem(
+        cfg, p_odo, q_true, kf_time, g, anchor, 0.0, station, device=dev))
+    sums = _checksums(prob.p_odo, prob.psr_rov, prob.psr_sta, prob.whiten, prob.ep_valid,
+                      prob.dopp, prob.dopp_sigma, prob.sat_vel)
+    check(np.allclose(sums, fx["checksums"], rtol=GNSS_SUM_RTOL, atol=0),
+          f"the port's problem is not JAX's: checksums {sums.tolist()}")
+    gb = testing.GNSS_BATCH
+    robust = batch_mod.RobustOpts(dd_huber=gb["dd_huber"], epoch_gate=gb["epoch_gate"],
+                                  rel_huber=gb["rel_huber"])
+    T = kf_time.shape[0]
+    n_iter = len(gb["thresholds"]) * gb["lm_iters"]
+
+    def solve(solver):
+        return batch_mod.optimize_batch(cfg, prob, thresholds=gb["thresholds"],
+                                        lm_iters=gb["lm_iters"], solver=solver, robust=robust)
+
+    s1, (p1, q1, c1) = _sync_s(lambda: solve("direct"))
+    s2, (p2, q2, c2) = _sync_s(lambda: solve("direct"))
+    check(torch.equal(p1, p2) and torch.equal(q1, q2) and c1 == c2,
+          "two Doppler batch solves on the card differ")
+    band_chol_mod.band_cholesky.launches = 0
+    s3, (p3, q3, _) = _sync_s(lambda: solve("chol_pcg"))
+    chol_launches = band_chol_mod.band_cholesky.launches
+    check(dev.type != "cuda" or chol_launches == n_iter,
+          f"band_cholesky launched {chol_launches} times in {n_iter} chol_pcg LM iterations")
+    # The direct solve: 10x JAX's own spread under a +-1e-9 m nudge of the
+    # odometry. chol_pcg stops after 14 CG iterations, 1.1e-2 m short of the
+    # exact solve on this drive, so its result moves with the f32 rounding
+    # of its preconditioner, which a nudge of the odometry barely changes:
+    # it is held to 10x JAX's own spread under a 1-ulp rescaling of that
+    # preconditioner (the card's f32 factor rounds otherwise than the CPU's).
+    # A direct solve in its place lies 1.1e-2 m away, and fails.
+    report = []
+    for name, p, q, tol_p, tol_q, key in (
+            ("direct", p2, q2, 10.0 * float(fx["nudge_dp"]), 10.0 * float(fx["nudge_dq"]), ""),
+            ("chol_pcg", p3, q3, 10.0 * float(fx["f32_nudge_dp_cp"]),
+             10.0 * float(fx["f32_nudge_dq_cp"]), "_cp")):
+        check(bool(torch.isfinite(p).all() & torch.isfinite(q).all()), f"{name} not finite")
+        dp = float(np.abs(p.cpu().numpy() - fx["p" + key]).max())
+        dq = float(np.abs(q.cpu().numpy() - fx["q" + key]).max())
+        check(dp <= tol_p and dq <= tol_q,
+              f"Doppler batch ({name}): max |p - JAX| {dp} m (tol {tol_p}), |q - JAX| {dq} "
+              f"(tol {tol_q})")
+        report.append(f"{name} max |dp| {dp:.3e} m (tol {tol_p:.3e}), |dq| {dq:.3e} (tol "
+                      f"{tol_q:.3e}), RMSE vs truth {_rmse(p, p_true):.4f} m")
+    report.append(f"JAX chol_pcg's own spreads: {float(fx['nudge_dp_cp']):.3e} m under the "
+                  f"odometry nudge, {float(fx['f32_nudge_dp_cp']):.3e} m under a 1-ulp rescaling "
+                  f"of its preconditioner")
+    print(f"gnss batch T={T} with Doppler rows ({int(prob.ep_valid.sum())} epochs bound, 4 "
+          f"stages x {gb['lm_iters']} LM iterations, bench robust options): build_problem "
+          f"{build_s:.2f} s (host); direct {s2:.3f} s ({1e3 * s2 / n_iter:.2f} ms per LM "
+          f"iteration; warm-up run {s1:.2f} s), two runs bit-identical; chol_pcg {s3:.3f} s "
+          f"({1e3 * s3 / n_iter:.2f} ms per LM iteration)")
+    print(f"gnss batch vs JAX (f64): " + "; ".join(report)
+          + f"; odometry RMSE {_rmse(p_odo, p_true):.4f} m")
+    # The f32 factor kernel at the solve's own input: the equilibrated band
+    # of its first LM iteration.
+    hw = cfg.estimator.search_range + 1
+    band, _, _, _, _ = batch_mod._assemble_core_impl(
+        prob.p_odo, prob.q_odo, prob, gb["thresholds"][0], hw, robust=robust,
+        plan=batch_mod.assembly_plan(prob, hw, True), use_doppler=True)
+    batch_mod._damp(band, torch.tensor(1e-4, dtype=torch.float64, device=dev), hw)
+    rec = band_chol_record(dev, banded._equilibrate(band)[0].to(torch.float32).contiguous())
+    rec["launches"] = chol_launches
+    return rec
+
+
+def _dense(band):
+    """The dense (T·D, T·D) matrix of a block band."""
+    T, Bw, D, _ = band.shape
+    hw = (Bw - 1) // 2
+    dense = torch.zeros((T * D, T * D), dtype=band.dtype, device=band.device)
+    t = torch.arange(T, device=band.device)
+    d = torch.arange(D, device=band.device)
+    for o in range(Bw):
+        j = t + o - hw
+        ok = (j >= 0) & (j < T)
+        rows, cols = t[ok][:, None] * D + d, j[ok][:, None] * D + d
+        dense[rows[:, :, None], cols[:, None, :]] = band[t[ok], o]
+    return dense
+
+
+def band_chol_record(dev, band_s, jitter=3e-4):
+    """The f32 block-banded Cholesky kernel (``ops.band_chol``) on the
+    equilibrated band of ``chol_pcg``'s preconditioner: against its plain
+    version (``banded.block_cholesky``), broken rows equal and the factor
+    within ``BAND_CHOL_RTOL`` of its largest entry; then kernel, plain and a
+    dense ``torch.linalg.cholesky_ex`` timed beside the bound. Returns the
+    record."""
+    L_k = band_chol_mod.band_cholesky(band_s, jitter)
+    L_p = banded.block_cholesky(band_s, jitter=jitter)
+    T, R, D, _ = L_p.shape
+    fin = torch.isfinite(L_p)
+    check(torch.equal(torch.isfinite(L_k), fin), "band_cholesky: kernel and plain NaN rows differ")
+    err = float((L_k - L_p)[fin].abs().max())
+    rel = err / float(L_p[fin].abs().max())
+    check(rel <= BAND_CHOL_RTOL,
+          f"band_cholesky: kernel vs plain {rel} of the largest entry > {BAND_CHOL_RTOL}")
+    rec = {"max_abs_err": err, "rel_err": rel, "shape": f"T={T}, hw={R - 1}, D={D}"}
+    if dev.type != "cuda":
+        print(f"band_cholesky {rec['shape']}: kernel == plain (the CPU runs the plain version)")
+        return rec
+    hw = R - 1
+    # Operations this band needs (no FMA: each multiply and add is one): per
+    # block row, the products and triangular solves of its columns j >= 0,
+    # then the diagonal block and its Cholesky.
+    ops = 0
+    for t in range(T):
+        for m in range(1, min(hw, t) + 1):
+            ops += (hw - m) * (D * D * (2 * D - 1) + D * D) + D * D * D
+        ops += min(hw, t) * (D * D * (2 * D - 1) + D * D) + D * D + D * D * D
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = gpu_clock_mhz()
+    bytes_ = 2 * T * R * D * D * 4      # the band's hw + 1 lower blocks in, the factor out
+    ops_ms = ops / (sms * 128 * clock * 1e3)
+    bytes_ms = bytes_ / (HBM_GB_S * 1e6)
+    dense = _dense(band_s) + jitter * torch.eye(T * D, dtype=torch.float32, device=dev)
+    rec.update(ms=time_device_ms(lambda: band_chol_mod.band_cholesky(band_s, jitter), reps=5),
+               plain_ms=time_device_ms(lambda: banded.block_cholesky(band_s, jitter=jitter),
+                                       reps=1),
+               library_ms=time_device_ms(lambda: torch.linalg.cholesky_ex(dense), reps=3),
+               bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms > bytes_ms
+               else "bytes", library_call="torch.linalg.cholesky_ex of the dense (T·D)² f32 "
+               "matrix + jitter·I: the same factor, dense; yardstick only")
+    del dense
+    print(f"band_cholesky {rec['shape']}: kernel vs plain {rel:.3e} of the largest entry (tol "
+          f"{BAND_CHOL_RTOL}), NaN rows equal; kernel {rec['ms']:.3f} ms, plain torch "
+          f"{rec['plain_ms']:.1f} ms, dense cholesky_ex {rec['library_ms']:.3f} ms (yardstick); "
+          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: {bytes_ / 1e6:.1f} MB, "
+          f"{ops / 1e6:.1f} M FP32 ops), kernel at {rec['bound_ms'] / rec['ms']:.2e} of it: "
+          f"one thread block walks the {T} dependent rows")
+    return rec
+
+
+class _StepRecorder:
+    """Within the block, keep every ``StepOutput`` that the window's
+    ``replay_from`` returns (``outs``)."""
+
+    def __enter__(self):
+        self.outs = []
+        self.orig = SlidingWindowEstimator.replay_from
+        orig, outs = self.orig, self.outs
+
+        def replay_from(est, carry, inputs):
+            carry, out = orig(est, carry, inputs)
+            outs.append(out)
+            return carry, out
+        SlidingWindowEstimator.replay_from = replay_from
+        return self
+
+    def __exit__(self, *exc):
+        SlidingWindowEstimator.replay_from = self.orig
+
+    def field(self, name):
+        return torch.cat([getattr(o, name) for o in self.outs]).cpu().numpy()
+
+
+def _csv_gate(rows, want, spread, name):
+    """Positions of a result CSV within 10x JAX's nudge spread; returns the
+    largest difference (m)."""
+    check(rows.shape == want.shape and np.array_equal(rows[:, :3], want[:, :3]),
+          f"{name} rows or times differ from JAX's")
+    d = max(np.abs(rows[:, 9:12] - want[:, 9:12]).max(), np.abs(rows[:, 5] - want[:, 5]).max())
+    d_ll = M_PER_DEG_LAT * np.abs(rows[:, 3:5] - want[:, 3:5]).max()
+    tol = 10.0 * spread
+    check(d <= tol and d_ll <= tol + 1.2e-3,
+          f"{name} positions differ from JAX's by {d} m, lat/lon {d_ll} m (tol {tol})")
+    return float(d)
+
+
+def _gnss_pipeline(dev, cfg, ep, **kw):
+    """``run_pipeline`` on ``dev`` with the backend fusion's debug lines,
+    each fusion solve timed and the window's outputs recorded. Returns
+    (seconds, result, CSV rows, debug lines, fusion seconds, recorder, kNN
+    launches, band-Cholesky launches)."""
+    buf = io.StringIO()
+    fusion = pipeline.replay_with_backend_fusion
+    pipeline.replay_with_backend_fusion = lambda *a, **k: fusion(*a, debug=True, **k)
+    try:
+        with tempfile.TemporaryDirectory() as tmp, _timed_fusion() as fusion_s, \
+                contextlib.redirect_stdout(buf), _StepRecorder() as rec:
+            knn_mod.knn.launches = band_chol_mod.band_cholesky.launches = 0
+            run_s, res = _sync_s(lambda: run_pipeline(ep, cfg, out_dir=tmp, device=dev, **kw))
+            launches = knn_mod.knn.launches
+            chol_launches = band_chol_mod.band_cholesky.launches
+            rows = {n: np.loadtxt(os.path.join(tmp, n + ".csv"), delimiter=",", ndmin=2)
+                    for n in ("tc_sw_result", "tc_batch_result")}
+    finally:
+        pipeline.replay_with_backend_fusion = fusion
+    return run_s, res, rows, buf.getvalue().splitlines(), fusion_s, rec, launches, chol_launches
+
+
+def long_run_phase(dev):
+    """15.4: the long-run configuration (``scripts/long_run.py:26-36``) on
+    30 keyframes through ``run_pipeline(..., backend_fusion_every=10)``.
+    Returns the kNN and band-Cholesky launches."""
+    cfg = testing.long_run_config(config_mod)
+    fx, sc = _gnss_scenario(LONG_RUN_FIXTURE, cfg, testing.LONG_RUN)
+    T = sc["n_keyframes"]
+    ep = testing.gnss_episode(sc, simulate_episode, simulate_gnss_epochs,
+                              np.asarray(cfg.initialization.anc_ecef),
+                              np.asarray(cfg.initialization.station_ecef))
+    run_s, res, rows, lines, fusion_s, rec, launches, chol_launches = _gnss_pipeline(
+        dev, cfg, ep, backend_fusion_every=sc["every"])
+    check(dev.type != "cuda" or launches == T,
+          f"knn launched {launches} times in {T} keyframes of the long run")
+    check(dev.type != "cuda" or chol_launches > 0,
+          "band_cholesky never launched in the long run's chol_pcg solves")
+    nlf = rec.field("n_lidar_factors")
+    check(np.array_equal(nlf, fx["n_lidar_factors"]),
+          f"n_lidar_factors {nlf.tolist()} != JAX {fx['n_lidar_factors'].tolist()}")
+    got, want = reset_decisions(lines), reset_decisions(json.loads(str(fx["lines"])))
+    check(not bool(fx["decisions_stable"]) or got == want, f"reset decisions {got} != JAX {want}")
+    d_sw = _csv_gate(rows["tc_sw_result"], fx["tc_sw_result"], float(fx["sw_nudge_dp"]),
+                     "long-run tc_sw_result")
+    d_bt = _csv_gate(rows["tc_batch_result"], fx["tc_batch_result"],
+                     float(fx["batch_nudge_dp"]), "long-run tc_batch_result")
+    fus = sum(fusion_s)
+    print(f"long run {T} keyframes (long_run.py: width 20, scan 1024, map 16384, DD rows in the "
+          f"window, chol_pcg, backend fusion every {sc['every']}): {run_s:.2f} s through "
+          f"run_pipeline (stages 1-3), {len(fusion_s)} fusion solves {fus:.2f} s in all; stage 1 "
+          f"{1e3 * (run_s - fus) / T:.1f} ms per keyframe without them, "
+          f"{1e3 * run_s / T:.1f} ms with everything (against the 333 ms of a 3 Hz stream); knn "
+          f"launches {launches}")
+    print(f"long run vs JAX: n_lidar_factors equal at all {T} steps, resets {got} "
+          f"(JAX {want}); tc_sw_result max diff {d_sw:.3e} m (tol "
+          f"{10 * float(fx['sw_nudge_dp']):.3e}), tc_batch_result {d_bt:.3e} m (tol "
+          f"{10 * float(fx['batch_nudge_dp']):.3e}): 10x JAX's own spread under +-1e-9 m nudges "
+          f"of p0; ATE RMSE stage 1 {_rmse(res.p_sw, ep.gt_p):.3f} m, batch "
+          f"{_rmse(res.p_batch, ep.gt_p):.3f} m; band_cholesky launches {chol_launches}")
+    return launches, chol_launches
+
+
+def doppler_window_phase(dev):
+    """15.5: phase 7's 15 keyframes with DD and Doppler rows in the window
+    and Doppler rows in the batch, through ``run_pipeline`` (stages 1-3).
+    Returns the kNN launches."""
+    cfg = testing.doppler_window_config(config_mod)
+    fx, sc = _gnss_scenario(DOPP_WINDOW_FIXTURE, cfg, testing.DOPPLER_WINDOW)
+    T = sc["n_keyframes"]
+    ep = testing.gnss_episode(sc, simulate_episode, simulate_gnss_epochs,
+                              np.asarray(cfg.initialization.anc_ecef),
+                              np.asarray(cfg.initialization.station_ecef))
+    run_s, res, rows, _, _, rec, launches, _ = _gnss_pipeline(dev, cfg, ep)
+    check(dev.type != "cuda" or launches == T,
+          f"knn launched {launches} times in {T} keyframes of the Doppler window")
+    check(np.array_equal(res.n_lidar_factors, fx["n_lidar_factors"]),
+          f"n_lidar_factors {res.n_lidar_factors.tolist()} != JAX "
+          f"{fx['n_lidar_factors'].tolist()}")
+    d_sw = _csv_gate(rows["tc_sw_result"], fx["tc_sw_result"], float(fx["sw_nudge_dp"]),
+                     "Doppler-window tc_sw_result")
+    d_bt = _csv_gate(rows["tc_batch_result"], fx["tc_batch_result"],
+                     float(fx["batch_nudge_dp"]), "Doppler-window tc_batch_result")
+    ddt = rec.field("ddt")
+    d_ddt = float(np.abs(ddt - fx["ddt"]).max())
+    tol_ddt = 10.0 * float(fx["ddt_nudge"])
+    check(d_ddt <= tol_ddt, f"window ddt differs from JAX's by {d_ddt} m/s (tol {tol_ddt})")
+    check(np.isfinite(res.p_lc).all(), "stage 3 not finite")
+    print(f"Doppler window {T} keyframes (bench shapes, DD + Doppler rows in the window, Doppler "
+          f"rows in the batch): {run_s:.2f} s through run_pipeline (stages 1-3), "
+          f"{1e3 * run_s / T:.1f} ms per keyframe; knn launches {launches}")
+    print(f"Doppler window vs JAX: n_lidar_factors equal at all {T} steps; tc_sw_result max diff "
+          f"{d_sw:.3e} m (tol {10 * float(fx['sw_nudge_dp']):.3e}), tc_batch_result {d_bt:.3e} m "
+          f"(tol {10 * float(fx['batch_nudge_dp']):.3e}), ddt {d_ddt:.3e} m/s (tol "
+          f"{tol_ddt:.3e}): 10x JAX's own spread under +-1e-9 m nudges of p0; receiver clock "
+          f"drift at the last keyframe {ddt[-1]:.4f} m/s")
+    return launches
+
+
+def gnss_phase(dev):
+    """Phase 15, GNSS: RINEX input, SPP, the Doppler batch, the long-run
+    configuration and the Doppler window. Returns the kNN launches of the
+    long run and of the Doppler window, and the band-Cholesky kernel's
+    record."""
+    fx, drive, g = rinex_phase(dev)
+    spp_phase(dev, fx, drive, g)
+    chol = gnss_batch_phase(dev, fx, drive, g)
+    long_launches, chol["launches_long_run"] = long_run_phase(dev)
+    return long_launches, doppler_window_phase(dev), chol
+
+
 def main():
     t_start = time.perf_counter()
     dev = device_phase()
@@ -1343,9 +1766,11 @@ def main():
     knn_kern["loop_verify"] = loop_rec
     knn_kern["max_abs_err"] = max(knn_kern["max_abs_err"], loop_rec["max_abs_err"],
                                   odo_rec["max_abs_err"], win_rec["max_abs_err"])
+    long_launches, dopp_launches, chol_kern = gnss_phase(dev)
     knn_kern["launches_by_path"] = {"replay": launches, "backend_fusion": fusion_launches,
                                     "loop_closure": loop_launches, "odometry": odo_launches,
-                                    "raw_input_replay": raw_launches}
+                                    "raw_input_replay": raw_launches,
+                                    "long_run": long_launches, "doppler_window": dopp_launches}
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": [
         {"name": "knn5_f32", "route": "cuda", "source": "glio_tpu_torch/csrc/knn.cu",
@@ -1353,7 +1778,11 @@ def main():
         {"name": "knn5_pairs_f32", "route": "cuda", "source": "glio_tpu_torch/csrc/knn.cu",
          "replaces": "glio_tpu/ops/knn_pallas.py:30", **pairs_kern},
         {"name": "copy_f32", "route": "cuda", "source": "glio_tpu_torch/csrc/copy.cu",
-         "replaces": "scripts/probe_pallas.py:28", "launches": copy_launches, **copy_kern}]}))
+         "replaces": "scripts/probe_pallas.py:28", "launches": copy_launches, **copy_kern},
+        {"name": "band_chol_f32", "route": "cuda", "source": "glio_tpu_torch/csrc/band_chol.cu",
+         "replaces": "glio_tpu/solver/banded.py:263",
+         "replaces_note": "no Pallas kernel: the plain-JAX block_cholesky (a lax.scan) that "
+                          "_f32_chol_precond calls in f32", **chol_kern}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,7 +6,9 @@ on has no jax. ``tests/test_torch_config_data.py`` holds every default
 here equal to the JAX package's, so the two cannot drift apart.
 """
 
-from dataclasses import dataclass, field, replace
+import json
+import warnings
+from dataclasses import dataclass, field, fields, replace
 from typing import Tuple
 
 
@@ -177,3 +179,38 @@ class GlioConfig:
 
     def replace(self, **kw):
         return replace(self, **kw)
+
+
+def _update_dataclass(dc, values: dict, path: str):
+    known = {f.name for f in fields(dc)}
+    kwargs = {}
+    for k, v in values.items():
+        if k not in known:
+            warnings.warn(f"config: unknown key {path}.{k} ignored (using defaults "
+                          f"for the rest) — matching getParameter fallback")
+            continue
+        kwargs[k] = v
+    return replace(dc, **kwargs)
+
+
+def load_config(data: dict) -> GlioConfig:
+    """Build a GlioConfig from a nested dict (parsed YAML/JSON).
+
+    Unknown keys warn and fall back to defaults, mirroring the reference's
+    ``getParameter`` warn-and-default behavior.
+    """
+    cfg = GlioConfig()
+    sections = {
+        "imu": cfg.imu, "lidar_odometry": cfg.lidar_odometry,
+        "initialization": cfg.initialization, "estimator": cfg.estimator,
+        "feature_selection": cfg.feature_selection, "shapes": cfg.shapes,
+    }
+    out = {}
+    for name, sub in sections.items():
+        out[name] = _update_dataclass(sub, data.get(name, {}), name)
+    return GlioConfig(**out)
+
+
+def load_config_file(path: str) -> GlioConfig:
+    with open(path) as f:
+        return load_config(json.load(f))

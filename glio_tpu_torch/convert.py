@@ -4,10 +4,13 @@ None of these imports jax: a caller turns JAX arrays into numpy first
 (``jax.tree.map(np.asarray, tree)``), and the converters read fields by name.
 
 * ``config_from_glio``: a ``glio_tpu.config.GlioConfig`` → the port's.
-* ``inputs_from_numpy``: stacked keyframe measurements → ``KeyframeInput``.
+* ``inputs_from_numpy``: stacked keyframe measurements → ``KeyframeInput``,
+  with the GNSS epochs bound to the keyframes when given.
+* ``gnss_kf_from_numpy`` / ``state_ddt_from_numpy``: a ``GnssKfData`` and a
+  ``WindowStateDdt`` with numpy leaves → tensors.
 * ``carry_from_numpy`` / ``carry_to_numpy``: the replay carry, as
-  ``replay_from`` takes it, for checkpoint and resume. The JAX carry's
-  GNSS ring and clock drift are not read: the window has no GNSS factors.
+  ``replay_from`` takes it, with its IMU, GNSS-epoch and clock-drift rings,
+  for checkpoint and resume.
 * ``gnss_from_numpy``: GNSS epochs with numpy leaves → ``GnssEpochs``.
 * ``batch_problem_from_numpy``: a batch problem with numpy leaves (a JAX
   ``BatchProblem`` through ``jax.tree.map(np.asarray, prob)``) →
@@ -24,8 +27,8 @@ import numpy as np
 import torch
 
 from . import config
-from .models.sliding_window import (KeyframeInput, ReplayCarry,
-                                    SlidingWindowCarry)
+from .models.sliding_window import (GnssKfData, KeyframeInput, ReplayCarry,
+                                    SlidingWindowCarry, WindowStateDdt, gnss_from_bound)
 from .solver.manifold import WindowState
 
 
@@ -38,16 +41,31 @@ def config_from_glio(cfg) -> config.GlioConfig:
 
 
 def inputs_from_numpy(imu_acc, imu_gyr, imu_dt, imu_valid, scan, scan_valid,
-                      time, *, device) -> KeyframeInput:
+                      time, *, device, gnss=None) -> KeyframeInput:
     """Stacked (T, ...) numpy measurements → ``KeyframeInput`` on ``device``:
-    IMU data and times f64, scans f32, masks bool."""
+    IMU data and times f64, scans f32, masks bool. ``gnss``: the dict of
+    ``gnss.dd.bind_epochs_to_keyframes``, or None for inputs without it."""
     def t(a, dtype):
         return torch.as_tensor(np.asarray(a), device=device).to(dtype)
     return KeyframeInput(
         imu_acc=t(imu_acc, torch.float64), imu_gyr=t(imu_gyr, torch.float64),
         imu_dt=t(imu_dt, torch.float64), imu_valid=t(imu_valid, torch.bool),
         scan=t(scan, torch.float32), scan_valid=t(scan_valid, torch.bool),
-        time=t(time, torch.float64))
+        time=t(time, torch.float64),
+        gnss=None if gnss is None else gnss_from_bound(gnss, device))
+
+
+def gnss_kf_from_numpy(tree, device) -> GnssKfData:
+    """A ``GnssKfData`` with numpy leaves (JAX's, through
+    ``jax.tree.map(np.asarray, ...)``) → tensors on ``device``."""
+    return gnss_from_bound({"gnss_" + f: getattr(tree, f) for f in GnssKfData._fields},
+                           device)
+
+
+def state_ddt_from_numpy(tree, device) -> WindowStateDdt:
+    """A ``WindowStateDdt`` with numpy leaves → tensors on ``device``."""
+    return WindowStateDdt(_tensors(WindowState, tree.win, device),
+                          torch.as_tensor(np.array(tree.ddt), device=device))
 
 
 def _tensors(cls, tree, device):
@@ -57,7 +75,8 @@ def _tensors(cls, tree, device):
 
 def carry_from_numpy(tree, device) -> ReplayCarry:
     """A replay carry with numpy leaves and the JAX carry's field names
-    (``base.window.p``, ..., ``imu_seed``) → a ``ReplayCarry`` on ``device``."""
+    (``base.window.p``, ..., ``imu_seed``, ``gnss_win``, ``ddt``) → a
+    ``ReplayCarry`` on ``device``."""
     b = tree.base
     base = {f: torch.as_tensor(np.array(getattr(b, f)), device=device)
             for f in SlidingWindowCarry._fields
@@ -65,8 +84,9 @@ def carry_from_numpy(tree, device) -> ReplayCarry:
     base["window"] = _tensors(WindowState, b.window, device)
     base["prior_lin"] = _tensors(WindowState, b.prior_lin, device)
     rings = {f: torch.as_tensor(np.array(getattr(tree, f)), device=device)
-             for f in ReplayCarry._fields if f != "base"}
-    return ReplayCarry(base=SlidingWindowCarry(**base), **rings)
+             for f in ReplayCarry._fields if f not in ("base", "gnss_win")}
+    return ReplayCarry(base=SlidingWindowCarry(**base),
+                       gnss_win=gnss_kf_from_numpy(tree.gnss_win, device), **rings)
 
 
 def carry_to_numpy(carry: ReplayCarry) -> ReplayCarry:

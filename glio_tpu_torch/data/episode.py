@@ -1,10 +1,11 @@
-"""Replayable episode and GNSS epochs (port of ``glio_tpu/data/episode.py:28-139``).
+"""Replayable episode and GNSS epochs (port of ``glio_tpu/data/episode.py``).
 
 All arrays are numpy on the host; ``to_inputs(device)`` stacks the
 keyframe measurements into the estimator's ``KeyframeInput``: scans f32,
-IMU data f64, as in the JAX package. The GNSS epochs feed the batch stage;
-GNSS in the sliding window, which would bind them to keyframes here, is not
-ported yet.
+IMU data f64, as in the JAX package, with the GNSS epochs bound to the
+keyframes' intervals (``gnss.dd.bind_epochs_to_keyframes``; zeros without
+GNSS) for GNSS in the sliding window. ``save`` / ``load`` keep an episode in
+one compressed ``.npz``, the JAX package's layout.
 """
 
 import dataclasses
@@ -75,8 +76,43 @@ class Episode:
     dense_rel_valid: Optional[np.ndarray] = None  # (T-1, D+1) bool
     dense_time: Optional[np.ndarray] = None       # (T-1, D)
 
-    def to_inputs(self, device):
-        """Stacked ``KeyframeInput`` on ``device``."""
+    @property
+    def num_keyframes(self):
+        return self.kf_time.shape[0]
+
+    def to_inputs(self, device, max_sv: int = 32):
+        """Stacked ``KeyframeInput`` on ``device``, GNSS bound in ``max_sv``
+        slots."""
+        from ..gnss.dd import bind_epochs_to_keyframes
         return inputs_from_numpy(self.imu_acc, self.imu_gyr, self.imu_dt,
                                  self.imu_valid, self.scan, self.scan_valid,
-                                 self.kf_time, device=device)
+                                 self.kf_time, device=device,
+                                 gnss=bind_epochs_to_keyframes(self.gnss, self.kf_time, max_sv))
+
+    def save(self, path: str):
+        """Every field that is set, GNSS fields under ``gnss.``, in one
+        compressed ``.npz``."""
+        flat = {}
+
+        def add(prefix, d):
+            for k, v in d.items():
+                if isinstance(v, dict):
+                    add(f"{prefix}{k}.", v)
+                elif v is not None:
+                    flat[f"{prefix}{k}"] = np.asarray(v)
+
+        add("", dataclasses.asdict(self))
+        np.savez_compressed(path, **flat)
+
+    @staticmethod
+    def load(path: str) -> "Episode":
+        z = np.load(path)
+        gnss_keys = [k for k in z.files if k.startswith("gnss.")]
+        gnss = None
+        if gnss_keys:
+            gnss = GnssEpochs(**{k.split(".", 1)[1]: z[k] for k in gnss_keys})
+        kwargs = {k: z[k] for k in z.files if "." not in k}
+        ep = Episode(gnss=gnss, **{k: v for k, v in kwargs.items() if k != "yaw_enu_local"})
+        if "yaw_enu_local" in z.files:
+            ep.yaw_enu_local = float(z["yaw_enu_local"])
+        return ep

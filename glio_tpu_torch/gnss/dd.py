@@ -7,11 +7,11 @@ difference operator and W the goGPS elevation/SNR weights
 the element-wise square root of D W⁻¹ Dᵀ before inverting (``cwiseSqrt``),
 not a matrix square root; so does this module.
 
-``elesnr_var_np``, ``select_master`` and ``dd_whitening_matrix`` are host
-numpy, copied from the JAX package; ``elesnr_var`` is their torch twin for
-the device. ``dd_residual`` is torch and takes any number of leading
-(epoch) axes. ``bind_epochs_to_keyframes`` belongs to GNSS in the sliding
-window, which is not ported yet.
+``elesnr_var_np``, ``select_master``, ``dd_whitening_matrix`` and
+``bind_epochs_to_keyframes`` are host numpy, copied from the JAX package;
+``elesnr_var`` is the torch twin of the variance for the device (``gnss.spp``
+takes it from here). ``dd_residual`` is torch and takes any number of
+leading (epoch) axes.
 """
 
 import numpy as np
@@ -121,3 +121,67 @@ def dd_residual(p_ecef, sat_pos, psr_rov, psr_sta, station_pos, valid, system,
         r = torch.where(torch.abs(r) > threshold, 0.05 * r, r)
         res.append((whiten[..., s, :, :] @ r[..., None])[..., 0])
     return torch.stack(res, dim=-2)
+
+
+def bind_epochs_to_keyframes(gnss, kf_time, max_sv: int):
+    """Per-keyframe GNSS binding for the sliding window (host numpy).
+
+    For each keyframe k, the latest epoch inside (t_{k-1}, t_k] with its
+    interpolation ratio toward k-1 (dd_psr_factor.hpp:42) and its whitening.
+    Returns a dict of (T, ...) arrays, the ``GnssKfData`` fields with a
+    ``gnss_`` prefix.
+    """
+    kf_time = np.asarray(kf_time, float)
+    T = kf_time.shape[0]
+    M = max_sv
+    out = dict(
+        gnss_sat_pos=np.zeros((T, M, 3)),
+        gnss_psr_rov=np.zeros((T, M)),
+        gnss_psr_sta=np.zeros((T, M)),
+        gnss_sv_valid=np.zeros((T, M), bool),
+        gnss_system=np.zeros((T, M), np.int32),
+        gnss_master=np.full((T, 4), -1, np.int32),
+        gnss_whiten=np.zeros((T, 4, M, M)),
+        gnss_ratio=np.full((T,), 0.5),
+        gnss_valid=np.zeros((T,), bool),
+        gnss_sat_vel=np.zeros((T, M, 3)),
+        gnss_sat_ddt=np.zeros((T, M)),
+        gnss_dopp=np.zeros((T, M)),
+        gnss_dopp_valid=np.zeros((T, M), bool),
+        gnss_dopp_std=np.ones((T, M)),
+    )
+    if gnss is None:
+        return out
+    # side="right": an epoch exactly at kf_time[k] binds to interval k, the
+    # half-open (t_{k-1}, t_k]; with side="left" it would be dropped.
+    idx = np.searchsorted(gnss.time, kf_time, side="right")
+    for k in range(1, T):
+        cand = idx[k] - 1              # the latest epoch within the interval
+        if cand < 0:
+            continue
+        te = gnss.time[cand]
+        if te <= kf_time[k - 1] or te > kf_time[k]:
+            continue
+        dt = kf_time[k] - kf_time[k - 1]
+        out["gnss_sat_pos"][k] = gnss.sat_pos[cand]
+        out["gnss_psr_rov"][k] = gnss.psr_rov[cand]
+        out["gnss_psr_sta"][k] = gnss.psr_sta[cand]
+        out["gnss_sv_valid"][k] = gnss.valid[cand]
+        out["gnss_system"][k] = gnss.system[cand]
+        out["gnss_master"][k] = gnss.master[cand]
+        out["gnss_whiten"][k] = dd_whitening_matrix(
+            gnss.elevation[cand], gnss.snr[cand], gnss.valid[cand],
+            gnss.system[cand], gnss.master[cand], M)
+        out["gnss_ratio"][k] = (kf_time[k] - te) / max(dt, 1e-9)
+        out["gnss_valid"][k] = True
+        # The Doppler channel of the tcdopplerFactor rows. The sigma is the
+        # reference's: weight = Doppler2PSRWeight(0.1) · W_goGPS, so the
+        # residual is divided by sqrt(10·var_elesnr) (Estimator.cpp:71,2288,2330).
+        out["gnss_sat_vel"][k] = gnss.sat_vel[cand]
+        out["gnss_sat_ddt"][k] = gnss.sat_ddt[cand]
+        out["gnss_dopp"][k] = gnss.dopp_rov[cand]
+        out["gnss_dopp_valid"][k] = gnss.valid[cand] & (gnss.dopp_rov[cand] != 0.0)
+        var = np.array([_elesnr_var_scalar(float(e), float(s))
+                        for e, s in zip(gnss.elevation[cand], gnss.snr[cand])])
+        out["gnss_dopp_std"][k] = np.sqrt(10.0 * np.maximum(var, 1e-6))
+    return out

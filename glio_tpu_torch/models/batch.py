@@ -24,11 +24,17 @@ i + 1..R, associated on the device by the 5-NN kernel over all keyframe
 pairs at once (``build_sms1``), and adds IMU chains over 15-dof keyframe
 states (``build_imu_chain``, ``optimize_batch_sms1_imu``).
 
-Plain f64 throughout: the JAX package's ``mixed=True`` (f32 whitening and
-Jacobians for the TPU's emulated f64) is not ported. Not ported yet, and
-refused with ``NotImplementedError``: Doppler rows (``doppler_in_batch``),
-``solver="chol_pcg"``, and the atmospheric, reference-cadence, incremental
-and sharded variants.
+With ``doppler_in_batch`` level 0 adds the Doppler rows (``_dopp_residuals``:
+velocities by central differences of the pose chain over the real keyframe
+intervals, the receiver clock drift eliminated per epoch), which couple the
+translations of four consecutive keyframes. ``solver="chol_pcg"`` solves each
+step by CG preconditioned with an f32 banded Cholesky factor
+(``banded.pcg_chol_solve``), as the JAX package's.
+
+Plain f64 otherwise: the JAX package's ``mixed=True`` (f32 whitening and
+Jacobians for the TPU's emulated f64) is not ported. Not ported yet: the
+atmospheric, reference-cadence, incremental and sharded variants, and level
+1's iterative solvers.
 """
 
 import time
@@ -66,7 +72,7 @@ class BatchProblem(NamedTuple):
     system: torch.Tensor       # (E, M) int32
     master: torch.Tensor       # (E, 4) int64
     whiten: torch.Tensor       # (E, 4, M, M)
-    # Doppler channel (read only by the Doppler rows, not ported yet).
+    # Doppler channel (read only by the Doppler rows, ``doppler_in_batch``).
     sat_vel: torch.Tensor      # (E, M, 3)
     sat_ddt: torch.Tensor      # (E, M)
     dopp: torch.Tensor         # (E, M) measured range rate (m/s)
@@ -231,13 +237,11 @@ NO_ROBUST = RobustOpts()
 
 
 def _check_supported(cfg, solver: str = "direct"):
-    if cfg.estimator.doppler_in_batch:
-        raise NotImplementedError("doppler_in_batch: Doppler rows in the batch "
-                                  "stage are not ported yet")
-    if solver == "chol_pcg":
-        raise NotImplementedError("solver='chol_pcg' is not ported yet")
-    if solver not in ("direct", "pcg"):
+    if solver not in ("direct", "pcg", "chol_pcg"):
         raise ValueError(f"unknown batch solver {solver!r}")
+    if cfg.estimator.doppler_in_batch and cfg.estimator.search_range + 1 < 3:
+        # The Doppler rows couple keyframes li−1 .. li+2: 3 block rows apart.
+        raise ValueError("doppler_in_batch needs search_range >= 2 (band half-width 3)")
 
 
 def _rel_rows_raw(p, q, prob: BatchProblem):
@@ -349,10 +353,82 @@ def _retract(p, q, dx):
     return p + d[:, :3], quat.normalize(quat.mul(q, quat.exp(d[:, 3:6])))
 
 
-def _total_cost(p, q, prob, threshold, w_rel=None, w_dd=None):
+def _total_cost(p, q, prob, threshold, w_rel=None, w_dd=None, use_doppler: bool = False):
     r1 = _rel_residuals(p, q, prob, w_rel)
     r2 = _dd_residuals(p, prob, threshold, w_dd)
-    return 0.5 * (torch.sum(r1 * r1) + torch.sum(r2 * r2))
+    c = 0.5 * (torch.sum(r1 * r1) + torch.sum(r2 * r2))
+    if use_doppler:
+        r3 = _dopp_residuals(p, prob)
+        c = c + 0.5 * torch.sum(r3 * r3)
+    return c
+
+
+# --- Doppler rows (doppler_in_batch; the reference ships them compiled out) -------
+
+def _dopp_pose_index(prob: BatchProblem, T: int):
+    """(E, 4) the keyframes li−1, li, li+1, li+2 of each epoch's Doppler
+    rows, clamped into the trajectory."""
+    li = prob.ep_left
+    return torch.stack([torch.clamp(li - 1, min=0), li, li + 1,
+                        torch.clamp(li + 2, max=T - 1)], dim=1)
+
+
+def _dopp_rows(P4, prob: BatchProblem, idx4):
+    """Whitened Doppler rows (E, M) from each epoch's four poses P4 (E, 4, 3)
+    (li−1, li, li+1, li+2); see ``_dopp_residuals``."""
+    R = r_ecef_local(prob.anchor_ecef, prob.yaw_enu_local)
+    kt = prob.kf_time[idx4]
+    dt_i = torch.clamp(kt[:, 2] - kt[:, 0], min=1e-3)[:, None]
+    dt_j = torch.clamp(kt[:, 3] - kt[:, 1], min=1e-3)[:, None]
+    v_i = (P4[:, 2] - P4[:, 0]) / dt_i
+    v_j = (P4[:, 3] - P4[:, 1]) / dt_j
+    ratio = prob.ep_ratio[:, None]
+    p_local = ratio * P4[:, 1] + (1.0 - ratio) * P4[:, 2]
+    v_local = ratio * v_i + (1.0 - ratio) * v_j
+    P = (p_local @ R.T + prob.anchor_ecef)[:, None, :]
+    V = (v_local @ R.T)[:, None, :]
+    sp, sv = prob.sat_pos, prob.sat_vel
+    d = sp - P
+    los = d / torch.clamp(torch.linalg.norm(d, dim=-1), min=1.0)[..., None]
+    sagnac = 7.2921151467e-5 / 299792458.0 * (
+        sv[..., 0] * P[..., 1] + sp[..., 0] * V[..., 1]
+        - sv[..., 1] * P[..., 0] - sp[..., 1] * V[..., 0])
+    est = torch.sum((sv - V) * los, dim=-1) + sagnac - prob.sat_ddt
+    a = est - prob.dopp                       # the residual before + rcv_ddt
+    w = prob.sv_valid.to(a.dtype) / torch.clamp(prob.dopp_sigma, min=1e-3)
+    w2 = torch.clamp(torch.sum(w * w, dim=-1, keepdim=True), min=1e-12)
+    ddt_opt = -torch.sum(w * w * a, dim=-1, keepdim=True) / w2   # exact weighted elimination
+    r = (a + ddt_opt) * w
+    return torch.where(prob.ep_valid[:, None], r, torch.zeros_like(r))
+
+
+def _dopp_residuals(p, prob: BatchProblem):
+    """Per-epoch Doppler rows (E, M) with the receiver clock drift
+    eliminated (the JAX package's ``_dopp_residuals``): the reference's
+    tcdopplerFactor (dopp_factor.hpp:19-85) over velocities from central
+    differences of the pose chain across the real keyframe intervals
+    (``kf_time``), the drift — a scalar in every row of its epoch —
+    projected out in closed form under the rows' weights, so no per-epoch
+    state enters the solver. Whitened by the reference's per-satellite
+    sigma √(10·var_elesnr) (``dopp_sigma``, Estimator.cpp:71,2288)."""
+    idx4 = _dopp_pose_index(prob, p.shape[0])
+    return _dopp_rows(p[idx4], prob, idx4)
+
+
+def _dopp_row_jac(p, prob: BatchProblem):
+    """The Doppler rows (E, M), their Jacobian (E, M, 4, 3) w.r.t. the
+    translations of poses li−1 .. li+2 by forward mode, and those poses
+    (E, 4). Where two of the four indices coincide (clamped at the ends of
+    the chain) one delta moves both, as a scatter-add of the deltas does."""
+    idx4 = _dopp_pose_index(prob, p.shape[0])
+    P4 = p[idx4]
+    alias = (idx4[:, :, None] == idx4[:, None, :]).to(p.dtype)      # (E, 4, 4)
+
+    def rows(d4):
+        return _dopp_rows(P4 + torch.einsum("eab,bk->eak", alias, d4), prob, idx4)
+
+    zero = torch.zeros((4, 3), dtype=p.dtype, device=p.device)
+    return rows(zero), torch.func.jacfwd(rows)(zero), idx4
 
 
 # --- assembly ----------------------------------------------------------------------
@@ -360,12 +436,15 @@ def _total_cost(p, q, prob, threshold, w_rel=None, w_dd=None):
 class AssemblyPlan(NamedTuple):
     """Scatter targets of one problem's assembly (see ``banded.ScatterPlan``):
     for each relative offset, then for the DD pairs, the plans of the four
-    block scatters and the two gradient scatters of the pairs (i, j)."""
+    block scatters and the two gradient scatters of the pairs (i, j); for
+    the Doppler rows, the 16 block couplings and 4 gradient rows of each
+    epoch's poses li−1 .. li+2 in one plan each (None without them)."""
     rel: tuple   # per r: (plan_ii, plan_ij, plan_ji, plan_jj, plan_gi, plan_gj)
     dd: tuple    # the same for the DD pairs (k, k+1)
+    dopp: tuple = None   # (plan of the blocks, plan of the gradient rows)
 
 
-def assembly_plan(prob: BatchProblem, hw: int) -> AssemblyPlan:
+def assembly_plan(prob: BatchProblem, hw: int, use_doppler: bool = False) -> AssemblyPlan:
     """Made once per problem: reads ``ep_left`` to the host."""
     T = prob.p_odo.shape[0]
     dev = prob.p_odo.device
@@ -376,7 +455,15 @@ def assembly_plan(prob: BatchProblem, hw: int) -> AssemblyPlan:
         j_idx = np.minimum(i_idx + r + 1, T - 1)
         rel.append(pair_plans(i_idx, j_idx, hw, dev))
     k = prob.ep_left.cpu().numpy()
-    return AssemblyPlan(tuple(rel), pair_plans(k, k + 1, hw, dev))
+    dopp = None
+    if use_doppler:
+        idx4 = _dopp_pose_index(prob, T).cpu().numpy()            # (E, 4)
+        # Order a-major, b, then epoch: the JAX package's 16 scatters.
+        rows = np.concatenate([idx4[:, a] for a in range(4) for _ in range(4)])
+        cols = np.concatenate([idx4[:, b] for _ in range(4) for b in range(4)])
+        dopp = (banded.block_plan(rows, cols, hw, dev),
+                banded.scatter_plan(idx4.T.reshape(-1), dev))
+    return AssemblyPlan(tuple(rel), pair_plans(k, k + 1, hw, dev), dopp)
 
 
 def pair_plans(a, b, hw: int, device) -> tuple:
@@ -411,7 +498,7 @@ def _scatter_pair(band, grad, Ji, Jj, res, plans):
 
 def _assemble_core_impl(p, q, prob: BatchProblem, threshold, hw: int,
                         w_rel=None, w_dd=None, robust: RobustOpts = None,
-                        plan: AssemblyPlan = None):
+                        plan: AssemblyPlan = None, use_doppler: bool = False):
     """Band and gradient by analytic per-factor Jacobians, plus the cost at
     (p, q) and the IRLS weights used.
 
@@ -422,8 +509,8 @@ def _assemble_core_impl(p, q, prob: BatchProblem, threshold, hw: int,
     T = p.shape[0]
     D = POSE_DOF
     dev = p.device
-    if plan is None:
-        plan = assembly_plan(prob, hw)
+    if plan is None or (use_doppler and plan.dopp is None):
+        plan = assembly_plan(prob, hw, use_doppler)
     band = torch.zeros((T, 2 * hw + 1, D, D), dtype=F64, device=dev)
     grad = torch.zeros((T, D), dtype=F64, device=dev)
     cost = torch.zeros((), dtype=F64, device=dev)
@@ -484,7 +571,25 @@ def _assemble_core_impl(p, q, prob: BatchProblem, threshold, hw: int,
     res, w_dd_rows = _scatter_dd(band, grad, p, prob, threshold, w_dd, robust, plan.dd)
     cost = cost + 0.5 * torch.sum(res * res)
     w_dd_all = w_dd_rows.reshape(w_dd.shape) if derive_w else w_dd
+    if use_doppler:
+        cost = cost + _scatter_dopp(band, grad, p, prob, plan.dopp)
     return band, grad, cost, w_rel_all, w_dd_all
+
+
+def _scatter_dopp(band, grad, p, prob: BatchProblem, plans):
+    """The Doppler rows into the translation corner of the 16 block
+    couplings of poses li−1 .. li+2 and their gradients; returns their cost."""
+    D = band.shape[-1]
+    res, J4, _ = _dopp_row_jac(p, prob)                    # (E, M), (E, M, 4, 3)
+    E = res.shape[0]
+    H = torch.einsum("emai,embj->abeij", J4, J4).reshape(16 * E, 3, 3)
+    blocks = torch.zeros((16 * E, D, D), dtype=F64, device=p.device)
+    blocks[:, :3, :3] = H
+    banded.scatter_add_rows(band.view(-1, D, D), blocks, plans[0])
+    g = torch.zeros((4 * E, D), dtype=F64, device=p.device)
+    g[:, :3] = torch.einsum("emai,em->aei", J4, res).reshape(4 * E, 3)
+    banded.scatter_add_rows(grad, g, plans[1])
+    return 0.5 * torch.sum(res * res)
 
 
 def _scatter_dd(band, grad, p, prob: BatchProblem, threshold, w_dd, robust, plans):
@@ -503,9 +608,10 @@ def _scatter_dd(band, grad, p, prob: BatchProblem, threshold, w_dd, robust, plan
     return res, w_dd_rows
 
 
-def _assemble(p, q, prob, threshold, hw, w_rel=None, w_dd=None, plan=None):
+def _assemble(p, q, prob, threshold, hw, w_rel=None, w_dd=None, plan=None,
+              use_doppler: bool = False):
     band, grad, _, _, _ = _assemble_core_impl(p, q, prob, threshold, hw,
-                                              w_rel, w_dd, None, plan)
+                                              w_rel, w_dd, None, plan, use_doppler)
     return band, grad
 
 
@@ -527,32 +633,37 @@ def solve_batch_once(cfg, prob: BatchProblem, p0, q0, threshold,
     """One annealing stage: ``lm_iters`` damped Gauss-Newton iterations.
 
     solver="direct" solves each step exactly by block cyclic reduction;
-    "pcg" by ``pcg_iters`` of block-Jacobi PCG. ``robust`` re-derives the
+    "pcg" by ``pcg_iters`` of block-Jacobi PCG; "chol_pcg" by 14 iterations
+    of CG preconditioned by the f32 banded Cholesky factor (~1e-5 step
+    accuracy, as the JAX package's). ``robust`` re-derives the
     IRLS weights at the current iterate every iteration; the step is
     accepted when the cost under those same frozen weights drops. Nothing
     here waits on the host. Returns (p, q, unweighted cost) as tensors.
     """
     _check_supported(cfg, solver)
     hw = cfg.estimator.search_range + 1
+    use_doppler = cfg.estimator.doppler_in_batch
     if plan is None:
-        plan = assembly_plan(prob, hw)
+        plan = assembly_plan(prob, hw, use_doppler)
     p, q = p0, q0
     lam = torch.tensor(1e-4, dtype=F64, device=p0.device)
     for _ in range(lm_iters):
         band, grad, cost_cur, w_rel, w_dd = _assemble_core_impl(
-            p, q, prob, threshold, hw, robust=robust, plan=plan)
+            p, q, prob, threshold, hw, robust=robust, plan=plan, use_doppler=use_doppler)
         _damp(band, lam, hw)
         if solver == "direct":
             dx = banded.cyclic_reduction_solve(band, -grad)
+        elif solver == "chol_pcg":
+            dx = banded.pcg_chol_solve(band, -grad)
         else:
             dx, _ = banded.pcg_solve(band, -grad, iters=pcg_iters)
         p_new, q_new = _retract(p, q, dx.reshape(-1))
-        new_cost = _total_cost(p_new, q_new, prob, threshold, w_rel, w_dd)
+        new_cost = _total_cost(p_new, q_new, prob, threshold, w_rel, w_dd, use_doppler)
         better = new_cost < cost_cur
         p = torch.where(better, p_new, p)
         q = torch.where(better, q_new, q)
         lam = torch.clamp(torch.where(better, lam * 0.3, lam * 5.0), 1e-9, 1e6)
-    return p, q, _total_cost(p, q, prob, threshold)
+    return p, q, _total_cost(p, q, prob, threshold, use_doppler=use_doppler)
 
 
 def optimize_batch(cfg, prob: BatchProblem, thresholds=(1e9, 10.0, 8.0, 6.0),
@@ -564,7 +675,7 @@ def optimize_batch(cfg, prob: BatchProblem, thresholds=(1e9, 10.0, 8.0, 6.0),
     (p, q, per-stage costs); the cost is read to the host once per stage.
     """
     _check_supported(cfg, solver)
-    plan = assembly_plan(prob, cfg.estimator.search_range + 1)
+    plan = assembly_plan(prob, cfg.estimator.search_range + 1, cfg.estimator.doppler_in_batch)
     p, q = (prob.p_odo, prob.q_odo) if init is None else init
     if isinstance(lm_iters, int):
         lm_iters = (lm_iters,) * len(thresholds)
@@ -587,7 +698,7 @@ def batch_marginal_covariance(cfg, prob: BatchProblem, p, q, threshold=6.0,
     translations."""
     _check_supported(cfg)
     hw = cfg.estimator.search_range + 1
-    band, _ = _assemble(p, q, prob, threshold, hw)
+    band, _ = _assemble(p, q, prob, threshold, hw, use_doppler=cfg.estimator.doppler_in_batch)
     diag = band[:, hw]
     band[:, hw] = diag + (
         jitter * torch.clamp(torch.diagonal(diag, dim1=-2, dim2=-1).sum(-1),

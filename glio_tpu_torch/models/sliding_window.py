@@ -15,16 +15,26 @@ Per keyframe, ``SlidingWindowEstimator.step`` does what the JAX ``step`` of
 ``lax.scan`` over keyframes becomes a Python loop; every data-dependent
 choice inside a step is a ``torch.where`` on the device, so a step never
 waits on the host except inside ``torch.linalg.eigh`` in the
-marginalization. GNSS factors stay out of the window (the reference's
-``#if 0``); feature selection is the global top-F or ``diverse_select``.
+marginalization. Feature selection is the global top-F or ``diverse_select``.
+
+With ``gnss_in_sliding_window`` (the reference ships these factors compiled
+out, ``#if 0`` Estimator.cpp:2255-2421) the window also carries a ring of the
+GNSS epochs bound to its intervals (``GnssKfData``, bound on the host by
+``gnss.dd.bind_epochs_to_keyframes``) and adds their whitened DD pseudorange
+rows; with ``doppler_in_window`` as well, Doppler rows and the clock-drift
+tie, over a state extended by one receiver clock drift per slot
+(``WindowStateDdt``). The GNSS rows are f64, as the rest of the window's
+rows, and stay out of the marginalization's factor set.
 """
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..config import GlioConfig
+from ..factors import gnss as gnss_factors
 from ..factors import imu as imu_factors
 from ..factors import lidar as lidar_factors
 from ..lidar import neighbors, plane_fit
@@ -38,6 +48,64 @@ F64 = torch.float64
 F32 = torch.float32
 
 
+class GnssKfData(NamedTuple):
+    """The DD epoch bound to a keyframe's interval (zeros where there is
+    none). The Doppler channel (sat_vel, sat_ddt, dopp) feeds the
+    tcdopplerFactor rows (dopp_factor.hpp:19-85); ``dopp_std`` is the
+    reference's per-satellite sigma sqrt(1 / (Doppler2PSRWeight · W_jj)),
+    Doppler2PSRWeight = 0.1 (Estimator.cpp:71,2288)."""
+    sat_pos: torch.Tensor     # (M, 3)
+    psr_rov: torch.Tensor     # (M,)
+    psr_sta: torch.Tensor     # (M,)
+    sv_valid: torch.Tensor    # (M,) bool
+    system: torch.Tensor      # (M,) int32
+    master: torch.Tensor      # (4,) int32
+    whiten: torch.Tensor      # (4, M, M)
+    ratio: torch.Tensor       # () interpolation toward the older keyframe
+    valid: torch.Tensor       # () bool
+    sat_vel: torch.Tensor     # (M, 3) ECEF satellite velocity
+    sat_ddt: torch.Tensor     # (M,) satellite clock drift (m/s)
+    dopp: torch.Tensor        # (M,) measured range rate (m/s)
+    dopp_valid: torch.Tensor  # (M,) bool
+    dopp_std: torch.Tensor    # (M,) per-satellite Doppler sigma (m/s)
+
+
+GNSS_DTYPES = {"sv_valid": torch.bool, "system": torch.int32, "master": torch.int32,
+               "valid": torch.bool, "dopp_valid": torch.bool}
+
+
+def gnss_from_bound(bound: dict, device) -> GnssKfData:
+    """``bind_epochs_to_keyframes``'s arrays (``gnss_`` keys) → stacked
+    ``GnssKfData`` on ``device``."""
+    return GnssKfData(**{
+        f: torch.as_tensor(np.array(bound["gnss_" + f]), device=device).to(
+            GNSS_DTYPES.get(f, F64)) for f in GnssKfData._fields})
+
+
+def empty_gnss(lead: tuple, max_sv: int, device) -> GnssKfData:
+    """A ``GnssKfData`` of zeros with leading shape ``lead``: no epoch."""
+    shapes = {"sat_pos": (max_sv, 3), "sat_vel": (max_sv, 3), "master": (4,),
+              "whiten": (4, max_sv, max_sv), "ratio": (), "valid": ()}
+    return GnssKfData(**{
+        f: torch.zeros(lead + shapes.get(f, (max_sv,)), dtype=GNSS_DTYPES.get(f, F64),
+                       device=device) for f in GnssKfData._fields})
+
+
+class WindowStateDdt(NamedTuple):
+    """The window state and one receiver clock drift per slot: the state of
+    the Doppler rows. Slot k carries the drift of the epoch bound to the
+    interval (k-1, k] and slides with the window (the reference's global
+    ``para_rcv_ddt``, Estimator.cpp:2100-2148)."""
+    win: WindowState
+    ddt: torch.Tensor   # (K,) m/s
+
+
+def retract_ddt(state: WindowStateDdt, delta) -> WindowStateDdt:
+    """Tangent update of the extended state: [K*15 pose dofs | K ddt]."""
+    n = state.win.p.shape[0] * POSE_DOF
+    return WindowStateDdt(retract(state.win, delta[:n]), state.ddt + delta[n:])
+
+
 class KeyframeInput(NamedTuple):
     """Per-keyframe measurements; stacked over time for ``replay``."""
     imu_acc: torch.Tensor     # (NI, 3) f64
@@ -47,6 +115,7 @@ class KeyframeInput(NamedTuple):
     scan: torch.Tensor        # (S, 3) f32 lidar-frame surf points
     scan_valid: torch.Tensor  # (S,) bool
     time: torch.Tensor        # () keyframe timestamp
+    gnss: GnssKfData = None   # the DD epoch of this interval, if bound
 
 
 class SlidingWindowCarry(NamedTuple):
@@ -77,6 +146,8 @@ class ReplayCarry(NamedTuple):
     imu_dt: torch.Tensor     # (K-1, NI)
     imu_valid: torch.Tensor  # (K-1, NI)
     imu_seed: torch.Tensor   # (K-1, 6) acc0/gyr0 seeds per edge
+    gnss_win: GnssKfData     # (K, ...) ring of the intervals' DD epochs
+    ddt: torch.Tensor        # (K,) receiver clock drift per bound epoch
 
 
 class StepOutput(NamedTuple):
@@ -87,6 +158,7 @@ class StepOutput(NamedTuple):
     bg: torch.Tensor
     cost: torch.Tensor
     n_lidar_factors: torch.Tensor
+    ddt: torch.Tensor   # receiver clock drift of the newest bound epoch (m/s)
 
 
 class LidarMeas(NamedTuple):
@@ -141,8 +213,13 @@ def _shift_window(w):
     return type(w)(*(torch.cat([a[1:], a[-1:]], dim=0) for a in w))
 
 
-def _index(tree, i):
-    return type(tree)(*(a[i] for a in tree))
+def index_inputs(tree, i):
+    """``tree[i]`` on every tensor of a (nested) named tuple, such as a
+    stacked ``KeyframeInput``; None stays None."""
+    if tree is None or isinstance(tree, torch.Tensor):
+        return None if tree is None else tree[i]
+    return type(tree)(*(index_inputs(a, i) for a in tree))
+
 
 
 class SlidingWindowEstimator(nn.Module):
@@ -157,8 +234,6 @@ class SlidingWindowEstimator(nn.Module):
     def __init__(self, cfg: GlioConfig, device):
         super().__init__()
         est = cfg.estimator
-        if est.gnss_in_sliding_window:
-            raise NotImplementedError("GNSS factors in the window are not ported yet")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
@@ -172,6 +247,12 @@ class SlidingWindowEstimator(nn.Module):
         self.register_buffer("noise_cov", params.noise_cov(device))
         self.register_buffer("q_lb", torch.tensor(est.ql2b, dtype=F64, device=device))
         self.register_buffer("t_lb", torch.tensor(est.tl2b, dtype=F64, device=device))
+        self.use_gnss = est.gnss_in_sliding_window
+        self.use_dopp = self.use_gnss and est.doppler_in_window
+        init = cfg.initialization
+        for name in ("anc_ecef", "station_ecef", "lever_arm", "yaw_enu_local"):
+            self.register_buffer(name, torch.tensor(getattr(init, name), dtype=F64,
+                                                    device=device))
 
     @property
     def device(self):
@@ -182,8 +263,10 @@ class SlidingWindowEstimator(nn.Module):
 
     # -- carry -------------------------------------------------------------
 
-    def make_initial_carry(self, p0, q0, v0, acc0=None, gyr0=None, *, n_imu: int):
-        """Fresh carry for ``replay_from``; ``n_imu`` is the IMU padding NI."""
+    def make_initial_carry(self, p0, q0, v0, acc0=None, gyr0=None, *, n_imu: int,
+                           max_sv: int = 32):
+        """Fresh carry for ``replay_from``; ``n_imu`` is the IMU padding NI,
+        ``max_sv`` the GNSS slots of the inputs (``Episode.to_inputs``)."""
         K, S, M, dev = self.K, self.S, self.M, self.device
         w = WindowState(p=self._vec(p0).expand(K, 3).clone(),
                         q=self._vec(q0).expand(K, 4).clone(),
@@ -220,6 +303,8 @@ class SlidingWindowEstimator(nn.Module):
             imu_dt=torch.zeros((K - 1, n_imu), dtype=F64, device=dev),
             imu_valid=torch.zeros((K - 1, n_imu), dtype=torch.bool, device=dev),
             imu_seed=torch.zeros((K - 1, 6), dtype=F64, device=dev),
+            gnss_win=empty_gnss((K,), max_sv, dev),
+            ddt=torch.zeros((K,), dtype=F64, device=dev),
         )
 
     # -- replay ------------------------------------------------------------
@@ -229,13 +314,14 @@ class SlidingWindowEstimator(nn.Module):
         (final carry, StepOutput stacked over time)."""
         outs = []
         for t in range(inputs.scan.shape[0]):
-            carry, out = self.step(carry, _index(inputs, t))
+            carry, out = self.step(carry, index_inputs(inputs, t))
             outs.append(out)
         return carry, StepOutput(*(torch.stack(a) for a in zip(*outs)))
 
     def replay(self, inputs: KeyframeInput, p0, q0, v0, acc0=None, gyr0=None):
+        max_sv = 32 if inputs.gnss is None else inputs.gnss.sv_valid.shape[-1]
         carry = self.make_initial_carry(p0, q0, v0, acc0, gyr0,
-                                        n_imu=inputs.imu_acc.shape[-2])
+                                        n_imu=inputs.imu_acc.shape[-2], max_sv=max_sv)
         return self.replay_from(carry, inputs)[1]
 
     forward = replay
@@ -283,7 +369,7 @@ class SlidingWindowEstimator(nn.Module):
 
     def _window_residual(self, state: WindowState, pres, imu_S, imu_edge_valid,
                          lidar32, prior_sqrt_jac, prior_sqrt_res, prior_valid,
-                         prior_lin):
+                         prior_lin, gnss_win: GnssKfData = None, ddt=None):
         """All window residuals, concatenated (fixed shape)."""
         dx = local_coordinates(state, prior_lin)
         r_prior = prior_sqrt_res + prior_sqrt_jac @ dx
@@ -303,7 +389,41 @@ class SlidingWindowEstimator(nn.Module):
             pts, nrm, d, score, state.p.to(F32), state.q.to(F32),
             self.q_lb.to(F32), self.t_lb.to(F32), mask).to(F64)
         r_lidar = r_lidar * dense.huber_weight(r_lidar)
-        return torch.cat([r_prior, r_imu.reshape(-1), r_lidar.reshape(-1)])
+        parts = [r_prior, r_imu.reshape(-1), r_lidar.reshape(-1)]
+        if gnss_win is not None:
+            parts += self._gnss_residual(state, gnss_win, ddt)
+        return torch.cat(parts)
+
+    def _gnss_residual(self, state: WindowState, g: GnssKfData, ddt):
+        """The window's GNSS rows: slot k's epoch binds to the interval
+        (k-1, k]; slot 0's older pose has left the window, so it is masked.
+        DD rows (gated at ``window_dd_threshold``) and, with ``ddt`` (the
+        Doppler path), Doppler rows and the clock-drift tie of adjacent
+        slots that both carry an epoch, both with HuberLoss(1.0) as the
+        reference (a tie across an epoch-less interval is dropped)."""
+        anchor, station, lever, yaw = (self.anc_ecef, self.station_ecef, self.lever_arm,
+                                       self.yaw_enu_local)
+        K = state.p.shape[0]
+        pair_ok = torch.arange(K, device=self.device) >= 1
+        on = g.valid & pair_ok
+        p_older = torch.cat([state.p[:1], state.p[:-1]])
+        r_dd = gnss_factors.dd_psr_residual(
+            p_older, state.p, g.ratio, anchor, yaw, station, g.sat_pos, g.psr_rov,
+            g.psr_sta, g.sv_valid, g.system, g.master, g.whiten,
+            threshold=self.cfg.estimator.window_dd_threshold, lever_arm=lever)
+        parts = [torch.where(on[:, None, None], r_dd, torch.zeros_like(r_dd)).reshape(-1)]
+        if ddt is not None:
+            v_older = torch.cat([state.v[:1], state.v[:-1]])
+            r_dopp = gnss_factors.doppler_residual(
+                p_older, v_older, state.p, state.v, g.ratio, ddt, anchor, yaw, g.sat_pos,
+                g.sat_vel, g.sat_ddt, g.dopp, g.dopp_valid & g.sv_valid,
+                torch.clamp(g.dopp_std, min=1e-3), lever_arm=lever)
+            r_dopp = torch.where(on[:, None], r_dopp, torch.zeros_like(r_dopp))
+            r_dopp = r_dopp * dense.huber_weight(r_dopp)
+            r_tie = gnss_factors.clock_drift_residual(ddt, g.valid[:-1] & g.valid[1:] & pair_ok[1:])
+            r_tie = r_tie * dense.huber_weight(r_tie)
+            parts += [r_dopp.reshape(-1), r_tie]
+        return parts
 
     def _marginalize_oldest(self, state: WindowState, pres, imu_S, imu_edge_valid,
                             lidar_meas: LidarMeas, prior_sqrt_jac,
@@ -312,7 +432,7 @@ class SlidingWindowEstimator(nn.Module):
         to the window's dimension. Factors: the previous prior, IMU edge
         (0, 1) and keyframe 0's lidar rows (Estimator.cpp:2462-2608)."""
         n = self.K * POSE_DOF
-        pre0 = _index(pres, 0)
+        pre0 = index_inputs(pres, 0)
 
         def res_fn(delta):
             s = retract(state, delta)
@@ -368,6 +488,15 @@ class SlidingWindowEstimator(nn.Module):
         imu_dt = shift_append(carry.imu_dt, inp.imu_dt.to(F64))
         imu_valid = shift_append(carry.imu_valid, inp.imu_valid & ~first)
         imu_seed = shift_append(carry.imu_seed, torch.cat([c.last_acc, c.last_gyr]))
+        gnss_win, ddt_ring = carry.gnss_win, carry.ddt
+        if self.use_gnss:
+            if inp.gnss is None:
+                raise ValueError("gnss_in_sliding_window needs inputs with bound GNSS "
+                                 "(Episode.to_inputs)")
+            gnss_win = type(gnss_win)(*(shift_append(r, n) for r, n in zip(gnss_win, inp.gnss)))
+            # The drift ring slides with the epochs; the incoming slot starts
+            # from the last estimate (constantClockDriftFactor's premise).
+            ddt_ring = shift_append(carry.ddt, carry.ddt[-1])
 
         n_edges = torch.clamp(c.kf_count, max=K - 1)
         imu_edge_valid = torch.arange(K - 1, device=dev) >= (K - 1 - n_edges)
@@ -381,7 +510,7 @@ class SlidingWindowEstimator(nn.Module):
         imu_S = imu_factors.sqrt_info(pres)
 
         # 3. Predict the incoming keyframe from the newest edge's deltas.
-        pre_new = _index(pres, K - 2)
+        pre_new = index_inputs(pres, K - 2)
         p_i, q_i, v_i = w.p[newest], w.q[newest], w.v[newest]
         dt_e = pre_new.sum_dt
         g = self.gravity
@@ -421,9 +550,11 @@ class SlidingWindowEstimator(nn.Module):
         # is pinned; a weak zero prior on the biases is always on and is
         # not part of the marginalized factor set.
         def residual_anchored(s):
+            s, ddt_s = (s.win, s.ddt) if self.use_dopp else (s, None)
             r = self._window_residual(s, pres, imu_S, imu_edge_valid, lidar32,
                                       c.prior_sqrt_jac, c.prior_sqrt_res,
-                                      c.prior_valid, c.prior_lin)
+                                      c.prior_valid, c.prior_lin,
+                                      gnss_win if self.use_gnss else None, ddt_s)
             anchor = torch.cat([
                 1e2 * (s.p[0] - w_new.p[0]),
                 1e2 * quat.log(quat.mul(quat.conj(w_new.q[0]), s.q[0])),
@@ -432,17 +563,25 @@ class SlidingWindowEstimator(nn.Module):
             bias_reg = torch.cat([10.0 * s.ba.reshape(-1), 30.0 * s.bg.reshape(-1)])
             return torch.cat([r, anchor, bias_reg])
 
-        out = dense.lm_solve(residual_anchored, retract, w_new, K * POSE_DOF,
-                             max_iters=est.sw_max_iter)
-        solved = out.x
+        if self.use_dopp:
+            out = dense.lm_solve(residual_anchored, retract_ddt,
+                                 WindowStateDdt(w_new, ddt_ring), K * POSE_DOF + K,
+                                 max_iters=est.sw_max_iter)
+            solved, ddt_solved = out.x
+        else:
+            out = dense.lm_solve(residual_anchored, retract, w_new, K * POSE_DOF,
+                                 max_iters=est.sw_max_iter)
+            solved, ddt_solved = out.x, ddt_ring
 
         # Divergence gates (Estimator.cpp:2650-2726): keep the prediction.
         ok = (torch.isfinite(solved.p).all()
               & (quat.norm(solved.p[newest] - w_new.p[newest]) < 100.0)
               & (torch.sqrt(torch.sum(solved.v * solved.v)) < 100.0 * K)
               & (solved.ba.abs().max() < 2.0)
-              & (solved.bg.abs().max() < 2.0))
+              & (solved.bg.abs().max() < 2.0)
+              & (ddt_solved.abs() < 1e4).all())
         solved = tree_where(ok, solved, w_new)
+        ddt_solved = torch.where(ok, ddt_solved, ddt_ring)
 
         # 7. Marginalize the oldest frame once the window is full.
         prior_sqrt_jac, prior_sqrt_res = c.prior_sqrt_jac, c.prior_sqrt_res
@@ -492,11 +631,11 @@ class SlidingWindowEstimator(nn.Module):
             map_slot_valid=map_slot_valid, map_head=c.map_head + 1,
             kf_count=c.kf_count + 1, last_acc=a_last, last_gyr=g_last)
         new_carry = ReplayCarry(new_base, imu_acc, imu_gyr, imu_dt, imu_valid,
-                                imu_seed)
+                                imu_seed, gnss_win, ddt_solved)
         out_rec = StepOutput(
             p=solved.p[newest], q=solved.q[newest], v=solved.v[newest],
             ba=solved.ba[newest], bg=solved.bg[newest], cost=out.cost,
-            n_lidar_factors=meas.mask.sum().to(torch.int32))
+            n_lidar_factors=meas.mask.sum().to(torch.int32), ddt=ddt_solved[newest])
         return new_carry, out_rec
 
 

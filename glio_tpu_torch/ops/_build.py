@@ -22,7 +22,7 @@ CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "glio_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("knn.cu", "copy.cu")
+SOURCES = ("knn.cu", "copy.cu", "band_chol.cu")
 
 
 def _nvcc() -> str:

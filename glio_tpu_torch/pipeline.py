@@ -18,9 +18,9 @@ through ``replay_from``, or, with ``backend_fusion_every > 0`` and GNSS,
 trailing keyframes and resets a diverged window. ``_finish_pipeline`` then
 applies loop closure (``loop_closure_on``), refines the dense frames when the
 episode carries them (``dense_path.csv``), exports the map (``save_pcd``),
-runs stage 2 at ``sms_fusion_level`` 0 or 1 and stage 3. Doppler rows in
-the batch (``doppler_in_batch``) are not ported and are refused with
-``NotImplementedError`` before anything runs.
+runs stage 2 at ``sms_fusion_level`` 0 or 1 and stage 3. Both stage-1
+paths hand the window the GNSS epochs bound to its keyframes
+(``Episode.to_inputs``), which it reads with ``gnss_in_sliding_window``.
 """
 
 import os
@@ -36,7 +36,7 @@ from .eval import trajectory as traj
 from .gnss import rtk
 from .models import batch as batch_mod
 from .models import lc_fusion
-from .models.sliding_window import make_replay
+from .models.sliding_window import index_inputs, make_replay
 from .utils import coords as C
 from .utils import quat
 
@@ -81,12 +81,6 @@ def _local_from_ecef(ecef, anchor_ecef, yaw_enu_local, device):
     enu = C.ecef2enu(t(ecef), t(anchor_ecef)).cpu().numpy()
     sy, cy = np.sin(yaw_enu_local), np.cos(yaw_enu_local)
     return enu @ np.array([[cy, sy, 0], [-sy, cy, 0], [0, 0, 1.0]]).T
-
-
-def _refuse_unported(cfg: GlioConfig, run_batch: bool):
-    if run_batch and cfg.estimator.doppler_in_batch:
-        raise NotImplementedError("doppler_in_batch: Doppler rows in the batch "
-                                  "stage are not ported yet")
 
 
 def _dd_fixes(cfg, g, anchor, station, device, sel=slice(None)):
@@ -187,7 +181,8 @@ def replay_with_backend_fusion(cfg: GlioConfig, ep: Episode, inputs, anchor, yaw
     T = kf_time.shape[0]
     kf_dt = float(np.median(np.diff(kf_time))) if T > 1 else 0.33
     carry = replay.make_initial_carry(ep.p0, ep.q0, ep.v0, ep.acc0, ep.gyr0,
-                                      n_imu=inputs.imu_acc.shape[-2])
+                                      n_imu=inputs.imu_acc.shape[-2],
+                                      max_sv=inputs.gnss.sv_valid.shape[-1])
     g = ep.gnss
     drift_thr = est.reset_drift_threshold
     fix_gate = est.reset_fix_disagree
@@ -210,7 +205,7 @@ def replay_with_backend_fusion(cfg: GlioConfig, ep: Episode, inputs, anchor, yaw
     p_hist = np.zeros((0, 3))
     q_hist = np.zeros((0, 4))
     for s in range(0, T, every):
-        part = type(inputs)(*(a[s:s + every] for a in inputs))
+        part = index_inputs(inputs, slice(s, s + every))
         carry, out = replay.replay_from(carry, part)
         p_hist = np.concatenate([p_hist, out.p.cpu().numpy()])
         q_hist = np.concatenate([q_hist, out.q.cpu().numpy()])
@@ -277,7 +272,7 @@ def replay_with_backend_fusion(cfg: GlioConfig, ep: Episode, inputs, anchor, yaw
             base = base._replace(window=w, map_slot_valid=torch.zeros_like(base.map_slot_valid),
                                  **prior_off)
             p_hist[t - K:t] = pk2
-        if did_reset and hasattr(carry, "ddt"):
+        if did_reset:
             # Per-slot receiver clock drifts absorbed the wrong velocity
             # during the divergence; they re-estimate from zero.
             carry = carry._replace(ddt=torch.zeros_like(carry.ddt))
@@ -309,7 +304,6 @@ def run_pipeline(ep: Episode, cfg: GlioConfig = GlioConfig(),
     have_gnss = ep.gnss is not None
     if run_batch is None:
         run_batch = have_gnss and cfg.estimator.enable_batch_fusion
-    _refuse_unported(cfg, run_batch)
     device = torch.device(device)
     anchor = (np.asarray(ep.anchor_ecef) if ep.anchor_ecef is not None
               else np.asarray(cfg.initialization.anc_ecef))
@@ -329,10 +323,11 @@ def run_pipeline(ep: Episode, cfg: GlioConfig = GlioConfig(),
         est = make_replay(cfg, device)
         T = int(np.asarray(ep.kf_time).shape[0])
         carry = est.make_initial_carry(ep.p0, ep.q0, ep.v0, ep.acc0, ep.gyr0,
-                                       n_imu=inputs.imu_acc.shape[-2])
+                                       n_imu=inputs.imu_acc.shape[-2],
+                                       max_sv=inputs.gnss.sv_valid.shape[-1])
         ps, qs, nl = [], [], []
         for s in range(0, T, sw_chunk):
-            part = type(inputs)(*(a[s:s + sw_chunk] for a in inputs))
+            part = index_inputs(inputs, slice(s, s + sw_chunk))
             carry, out = est.replay_from(carry, part)
             ps.append(out.p)
             qs.append(out.q)

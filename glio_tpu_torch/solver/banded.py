@@ -6,12 +6,15 @@ H[t, t + o − hw]. This module has the band storage and its matvec, the
 scatter-add that assembles it, block-Jacobi PCG, the exact solve by block
 cyclic reduction and the selected inverse of the diagonal blocks.
 
-Everything is f64 on the card: the JAX package's f32 paths
-(``cyclic_reduction_solve_mixed``, ``_equilibrate``,
-``f32_matmul_precision``) exist because TPU f64 is emulated and have no
-counterpart. The sequential ``block_cholesky`` with ``direct_solve`` and
-``woodbury_solve`` (banded plus a few dense rows: loop closure) are here;
-``pcg_chol_solve`` is not ported yet.
+The solves are f64 on the card: the JAX package's TPU workarounds
+(``cyclic_reduction_solve_mixed``, ``f32_matmul_precision``) exist because
+TPU f64 is emulated and have no counterpart. The sequential
+``block_cholesky`` with ``direct_solve`` and ``woodbury_solve`` (banded
+plus a few dense rows: loop closure) are here, and ``pcg_chol_solve``, the
+``chol_pcg`` solver a user selects: CG on the f64 band, preconditioned by
+an equilibrated f32 Cholesky factor (``_equilibrate``,
+``f32_chol_precond``; on the card the CUDA kernel of ``ops/band_chol.py``),
+as in the JAX package.
 
 Determinism: ``scatter_add_blocks`` sums duplicate targets one occurrence
 at a time in the order of the updates, as ``.at[].add`` does on the CPU, so
@@ -291,13 +294,16 @@ def block_cholesky(band, jitter: float = 0.0):
 
     band: (T, 2hw+1, D, D). Returns Lb (T, hw+1, D, D) with
     Lb[t, m] = L[t][t − m] (m = 0 the diagonal). One block row after the
-    other, as the JAX package's scan: a sequence of T small steps.
+    other, as the JAX package's scan: a sequence of T small steps. As there,
+    a column whose diagonal block sums to 0 in absolute value, or to NaN (a
+    block row whose Cholesky broke down), is set to zero in the rows below,
+    so a breakdown stays in its own block row.
     """
     T, Bw, D, _ = band.shape
     hw = (Bw - 1) // 2
-    eye = torch.eye(D, dtype=band.dtype, device=band.device)
+    jit = jitter * torch.eye(D, dtype=band.dtype, device=band.device)
     zero = torch.zeros((D, D), dtype=band.dtype, device=band.device)
-    rows = []
+    rows, ok = [], []
     for t in range(T):
         new = [zero] * (hw + 1)
         # Columns left to right: j = t − m for m = hw..1, then the diagonal.
@@ -308,15 +314,17 @@ def block_cholesky(band, jitter: float = 0.0):
             # S = A[t][j] − Σ L[t][k] L[j][k]ᵀ over k = j − 1..j − (hw − m).
             S = band[t, hw - m]
             for k_off in range(1, hw - m + 1):
-                S = S - new[m + k_off] @ rows[j][k_off].mT
+                S = torch.addmm(S, new[m + k_off], rows[j][k_off].mT, alpha=-1.0)
             # L[t][j] = S L[j][j]⁻ᵀ.
-            new[m] = torch.linalg.solve_triangular(rows[j][0], S.mT, upper=False).mT
+            val = torch.linalg.solve_triangular(rows[j][0], S.mT, upper=False).mT
+            new[m] = torch.where(ok[j], val, zero)
         S = band[t, hw]
         for m in range(1, hw + 1):
-            S = S - new[m] @ new[m].mT
-        new[0] = cholesky_or_nan(S + jitter * eye)
-        rows.append(torch.stack(new))
-    return torch.stack(rows)
+            S = torch.addmm(S, new[m], new[m].mT, alpha=-1.0)
+        new[0] = cholesky_or_nan(S + jit)
+        ok.append(new[0].abs().sum() > 0)
+        rows.append(new)
+    return torch.stack([torch.stack(r) for r in rows])
 
 
 def block_cholesky_solve(Lb, b):
@@ -393,3 +401,116 @@ def selected_inverse_diag(band):
     Sig = _spd_solve_batched(M, eye).reshape(N, hw, D, hw, D)
     diag = torch.stack([Sig[:, r, :, r, :] for r in range(hw)], dim=1)
     return diag.reshape(N * hw, D, D)[:T]
+
+
+# --- CG preconditioned by an f32 banded Cholesky factor (``chol_pcg``) ----------
+
+def _equilibrate(band):
+    """Symmetric Jacobi scaling: (band_s, s) with band_s[t, o, i, j] =
+    band[t, o, i, j]·s[t, i]·s[t + o − hw, j], s = diag^(−1/2), which takes
+    the 1e8 spread between the attitude and translation blocks out of the
+    f32 factor."""
+    T, Bw, D, _ = band.shape
+    hw = (Bw - 1) // 2
+    diag = torch.diagonal(band[:, hw], dim1=-2, dim2=-1)
+    s = 1.0 / torch.sqrt(torch.clamp(diag, min=1e-12))
+    idx = torch.arange(T, device=band.device)
+    cols = []
+    for o in range(Bw):
+        shift = o - hw
+        ok = (idx + shift >= 0) & (idx + shift < T)
+        cols.append(torch.where(ok[:, None], torch.roll(s, -shift, dims=0), torch.zeros_like(s)))
+    S_col = torch.stack(cols, dim=1)
+    return band * s[:, None, :, None] * S_col[:, :, None, :], s
+
+
+class F32CholPrecond(NamedTuple):
+    """M = L Lᵀ ≈ the equilibrated band. ``Lb`` is L by block rows; the
+    apply takes it as its hw·D super-rows: M⁻¹r is y_i = a_i − G_i y_{i−1}
+    (a = L_ii⁻¹ r) forward, then x_i = b_i − H_i x_{i+1} (b = L_ii⁻ᵀ y)
+    backward, in f32."""
+    s: torch.Tensor       # (T, D) f64 equilibration
+    Lb: torch.Tensor      # (T, hw + 1, D, D) f32, as ``block_cholesky``'s
+    Linv: torch.Tensor    # (N, S, S): L_ii⁻¹
+    G: tuple              # N × (S, S): L_ii⁻¹ L_{i,i−1} (G[0] = 0)
+    H: tuple              # N × (S, S): (L_{i+1,i} L_ii⁻¹)ᵀ (H[N−1] = 0)
+
+
+def f32_chol_precond(band, jitter: float = 3e-4) -> F32CholPrecond:
+    """The JAX package's ``_f32_chol_precond``: the f32 ``block_cholesky`` of
+    the equilibrated band (+ jitter·I; on the card the kernel
+    ``ops.band_chol.band_cholesky``), block row by block row as there (a
+    factor taken one hw·D super-row at a time rounds otherwise, and on a
+    long stiff chain lands about 4x further from the exact factor). A block
+    row whose f32 Schur complement broke down (``block_cholesky`` keeps it
+    to that row) is replaced by the identity, so M stays SPD. The factor is
+    then regrouped into super-rows for ``f32_chol_apply``."""
+    from ..ops.band_chol import band_cholesky   # the kernel's wrapper imports this module
+    band_s, s = _equilibrate(band)
+    Lb = band_cholesky(band_s.to(torch.float32).contiguous(), jitter=jitter)
+    T, HW1, D, _ = Lb.shape
+    hw = HW1 - 1
+    eye_row = torch.zeros_like(Lb[0])
+    eye_row[0] = torch.eye(D, dtype=Lb.dtype, device=Lb.device)
+    bad = ~torch.isfinite(Lb.reshape(T, -1)).all(dim=1)
+    Lb = torch.where(bad[:, None, None, None], eye_row, Lb)
+    # Block row t = i·hw + a holds columns t − hw..t: in the pair of
+    # super-rows (i − 1, i) they start at block column a.
+    N, S = -(-T // hw), hw * D
+    rows = eye_row.expand(N * hw, HW1, D, D).clone()
+    rows[:T] = Lb
+    rows = rows.flip(1).permute(0, 2, 1, 3).reshape(N * hw, D, HW1 * D)
+    pair = torch.zeros((N * hw, D, 2 * S), dtype=Lb.dtype, device=Lb.device)
+    for a in range(hw):
+        pair[a::hw, :, a * D:(a + HW1) * D] = rows[a::hw]
+    pair = pair.reshape(N, S, 2 * S)
+    Lsub, L = pair[..., :S], pair[..., S:]
+    eye = torch.eye(S, dtype=Lb.dtype, device=Lb.device)
+    Linv = torch.linalg.solve_triangular(L, eye.expand(N, S, S), upper=False)
+    G = Linv @ Lsub
+    H = torch.cat([(Lsub[1:] @ Linv[:-1]).mT, torch.zeros_like(eye)[None]])
+    return F32CholPrecond(s, Lb, Linv, G.unbind(0), H.unbind(0))
+
+
+def f32_chol_apply(M: F32CholPrecond, r):
+    """M⁻¹ r for r (T, D) f64, solved in f32; returns f64."""
+    T, D = r.shape
+    N, S = M.Linv.shape[:2]
+    rs = torch.zeros((N * S // D, D), dtype=torch.float32, device=r.device)
+    rs[:T] = (r * M.s).to(torch.float32)
+    a = (M.Linv @ rs.reshape(N, S, 1))[..., 0].unbind(0)
+    y = [a[0]]
+    for i in range(1, N):
+        y.append(torch.addmv(a[i], M.G[i], y[-1], alpha=-1.0))
+    b = (M.Linv.mT @ torch.stack(y)[..., None])[..., 0].unbind(0)
+    x = [b[N - 1]]
+    for i in range(N - 2, -1, -1):
+        x.append(torch.addmv(b[i], M.H[i], x[-1], alpha=-1.0))
+    out = torch.stack(x[::-1]).reshape(-1, D)[:T]
+    return out.to(r.dtype) * M.s
+
+
+def pcg_chol_solve(band, b, iters: int = 14, jitter: float = 3e-4):
+    """CG on the exact f64 band, preconditioned by the equilibrated f32
+    banded Cholesky factor (``f32_chol_precond``), a fixed ``iters``
+    iterations (the JAX package's ``pcg_chol_solve``: a pure f32 factor with
+    stationary refinement diverges on long stiff chains, Krylov iteration
+    tolerates the imperfect factor). Returns x (T, D)."""
+    M = f32_chol_precond(band, jitter)
+    x = torch.zeros_like(b)
+    r = b - band_matvec(band, x)
+    z = f32_chol_apply(M, r)
+    p = z
+    rz = torch.sum(r * z)
+    for _ in range(iters):
+        Ap = band_matvec(band, p)
+        pAp = torch.sum(p * Ap)
+        alpha = torch.where(pAp > 0, rz / torch.clamp(pAp, min=1e-300), torch.zeros_like(pAp))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = f32_chol_apply(M, r)
+        rz_new = torch.sum(r * z)
+        beta = torch.where(rz > 0, rz_new / torch.clamp(rz, min=1e-300), torch.zeros_like(rz))
+        p = z + beta * p
+        rz = rz_new
+    return x

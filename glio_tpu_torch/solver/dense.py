@@ -13,7 +13,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from . import linalg
-from .manifold import tree_where
+from .manifold import first_leaf, tree_where
 
 
 # Damping schedule of the JAX package's lm_solve defaults.
@@ -51,9 +51,10 @@ def lm_solve(residual_fn: Callable, retract_fn: Callable, x0, tangent_dim: int,
     """Levenberg–Marquardt with Marquardt diagonal scaling on a manifold.
 
     residual_fn maps a state to a fixed-shape f64 residual vector (invalid
-    rows masked to zero inside); retract_fn applies a tangent step.
+    rows masked to zero inside); retract_fn applies a tangent step. The
+    state is a named tuple of tensors, or of such tuples.
     """
-    dev = x0[0].device
+    dev = first_leaf(x0).device
     zeros = torch.zeros(tangent_dim, dtype=torch.float64, device=dev)
     r = residual_fn(x0)
     cost = init_cost = _cost(r)

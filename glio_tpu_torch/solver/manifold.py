@@ -19,8 +19,18 @@ class WindowState(NamedTuple):
 
 
 def tree_where(cond, a, b):
-    """Field-wise ``torch.where(cond, a, b)`` over two states of one type."""
-    return type(a)(*(torch.where(cond, x, y) for x, y in zip(a, b)))
+    """Field-wise ``torch.where(cond, a, b)`` over two states of one type,
+    nested named tuples included (``WindowStateDdt``)."""
+    if isinstance(a, torch.Tensor):
+        return torch.where(cond, a, b)
+    return type(a)(*(tree_where(cond, x, y) for x, y in zip(a, b)))
+
+
+def first_leaf(tree) -> torch.Tensor:
+    """The first tensor of a (nested) state."""
+    while not isinstance(tree, torch.Tensor):
+        tree = tree[0]
+    return tree
 
 
 def retract(state: WindowState, delta: torch.Tensor) -> WindowState:

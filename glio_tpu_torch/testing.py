@@ -419,3 +419,343 @@ def write_raw_bag(path, ep, frames, valid, t0, compress="bz2"):
     scans = [(t0 + ep.kf_time[f], serialize_pointcloud2(t0 + ep.kf_time[f], frames[f][valid[f]]))
              for f in range(frames.shape[0])]
     write_bag(path, scans, imu_messages(ep, t0), compress)
+
+
+# --- synthetic RINEX -------------------------------------------------------------
+#
+# A RINEX 3 nav file of broadcast Kepler elements chosen here and an obs file
+# of a receiver along a known drive, for the GNSS input path (``gnss.rinex``,
+# ``gnss.native``, ``gnss.converter``) where no recorded drive is at hand. The
+# satellite states come from the port's ``gnss.ephemeris`` on the elements as
+# they read back from the nav file, and every value is rounded to its field's
+# decimals, so the files are text that any reader decodes the same way.
+
+GNSS_T0 = (2021, 5, 17, 2, 0, 0)     # GPS civil time of the first epoch (a Monday)
+GNSS_DRIVE = dict(n_keyframes=3493, max_drift=6.0, epoch_stride=3, epoch_offset=0.01,
+                  seed=15, n_gps=8, n_bds=6, psr_noise=0.5)
+
+
+def gps_unix(y, mo, d, hh, mi, ss):
+    """GPS civil time → GPS seconds on the unix epoch (the converter's time)."""
+    from .gnss.rinex import civil2gps
+    week, tow = civil2gps(y, mo, d, hh, mi, ss)
+    return 315964800.0 + week * 604800.0 + tow
+
+
+def _gps_civil(t):
+    """GPS seconds on the unix epoch → (y, mo, d, hh, mi, ss), the inverse of
+    ``gps_unix`` (``rinex.write_obs_v2``'s calendar arithmetic)."""
+    from .gnss.rinex import GPS_DAY0
+    tu = t - 315964800.0
+    week = int(tu // 604800.0)
+    tow = tu - week * 604800.0
+    mjd = GPS_DAY0 + week * 7 + int(tow // 86400.0)
+    sod = tow - int(tow // 86400.0) * 86400.0
+    a = mjd + 2400001 + 32044
+    b = (4 * a + 3) // 146097
+    c = a - 146097 * b // 4
+    d = (4 * c + 3) // 1461
+    e = c - 1461 * d // 4
+    m = (5 * e + 2) // 153
+    day = e - (153 * m + 2) // 5 + 1
+    month = m + 3 - 12 * (m // 10)
+    year = 100 * b + d - 4800 + m // 10
+    hh = int(sod // 3600)
+    mi = int((sod - hh * 3600) // 60)
+    return year, month, day, hh, mi, sod - hh * 3600 - mi * 60
+
+
+def _d19(v):
+    """One RINEX nav field (D19.12, written with E)."""
+    return f"{float(v): .12E}"
+
+
+def _rounded(v):
+    return float(_d19(v))
+
+
+_ORBITS = {  # system char → (sqrt_a, inclination (rad)) of its medium orbits
+    "G": (5153.7, 0.9599), "C": (5282.6, 0.9599)}
+
+
+def _candidate(rng, sys_c, prn, geo):
+    """Random broadcast elements of one satellite, each rounded to its field."""
+    if geo:
+        sqrt_a, i0, e = 6493.4 + rng.normal(0, 0.2), 0.08 + rng.normal(0, 0.01), 5e-4
+        omega_dot = 0.0
+    else:
+        sqrt_a, i0 = _ORBITS[sys_c]
+        sqrt_a, i0 = sqrt_a + rng.normal(0, 0.3), i0 + rng.normal(0, 0.01)
+        e = rng.uniform(0.001, 0.02)
+        omega_dot = -8.0e-9 + rng.normal(0, 2e-10)
+    el = dict(prn=prn, sqrt_a=sqrt_a, e=e, i0=i0, omega_dot=omega_dot,
+              m0=rng.uniform(-np.pi, np.pi), omega=rng.uniform(-np.pi, np.pi),
+              omega0=rng.uniform(-np.pi, np.pi), delta_n=4.5e-9 + rng.normal(0, 3e-10),
+              idot=rng.normal(0, 1e-10), cuc=rng.normal(0, 5e-6), cus=rng.normal(0, 5e-6),
+              crc=rng.normal(200, 50), crs=rng.normal(0, 50), cic=rng.normal(0, 1e-7),
+              cis=rng.normal(0, 1e-7), af0=rng.uniform(-5e-4, 5e-4), af1=rng.normal(0, 5e-12),
+              af2=0.0, tgd=rng.normal(0, 5e-9))
+    return {k: (v if k == "prn" else _rounded(v)) for k, v in el.items()}
+
+
+def _nav_record(sys_c, el, toe_gps):
+    """Eight lines of one GPS / BDS record: times in the system's own scale
+    (BDT = GPST − 14 s, BDT week = GPS week − 1356)."""
+    from .gnss.rinex import BDS_TIME_OFFSET, BDS_WEEK_OFFSET
+    shift = BDS_TIME_OFFSET if sys_c == "C" else 0.0
+    y, mo, d, hh, mi, ss = _gps_civil(toe_gps - shift)
+    week = int((toe_gps - shift - 315964800.0) // 604800.0)
+    sow = toe_gps - shift - 315964800.0 - week * 604800.0
+    week -= BDS_WEEK_OFFSET if sys_c == "C" else 0
+    rows = [[0.0, el["crs"], el["delta_n"], el["m0"]],
+            [el["cuc"], el["e"], el["cus"], el["sqrt_a"]],
+            [sow, el["cic"], el["omega0"], el["cis"]],
+            [el["i0"], el["crc"], el["omega"], el["omega_dot"]],
+            [el["idot"], 1.0, week, 0.0],
+            [2.0, 0.0, el["tgd"], 0.0],
+            [sow, 4.0, 0.0, 0.0]]
+    head = (f"{sys_c}{el['prn']:02d} {y:4d} {mo:02d} {d:02d} {hh:02d} {mi:02d} {int(ss):02d}"
+            + "".join(_d19(el[k]) for k in ("af0", "af1", "af2")))
+    return [head] + ["    " + "".join(_d19(v) for v in r) for r in rows]
+
+
+def _azel_all(sat_pos, rcv):
+    """az, el (E, S) of satellites (E, S, 3) from receivers (E, 3)."""
+    from .utils import coords as C
+    R = C.ecef2enu_rotmat_np(C.ecef2llh_np(rcv))                    # (E, 3, 3)
+    enu = np.einsum("eij,esj->esi", R, sat_pos - rcv[:, None, :])
+    return (np.arctan2(enu[..., 0], enu[..., 1]),
+            np.arctan2(enu[..., 2], np.linalg.norm(enu[..., :2], axis=-1)))
+
+
+def _states(ephs, t_rx, psr):
+    """tx_state_batch of the records (N,) whose ephemerides are ``ephs``."""
+    from .gnss.ephemeris import stack_ephs, tx_state_batch
+    return tx_state_batch(stack_ephs(ephs), t_rx, psr)
+
+
+def write_synthetic_rinex(obs_path, nav_path, t_gps, rover_ecef, *, seed, systems="GC",
+                          n_gps=8, n_bds=6, psr_noise=0.5, min_el_deg=20.0):
+    """Write a RINEX 3 nav file and obs file of a receiver at ``rover_ecef``
+    (E, 3) at the epochs ``t_gps`` (E,) (GPS seconds on the unix epoch).
+
+    The nav file holds one record per satellite, toe at the whole hour
+    nearest the middle epoch: ``n_gps`` GPS satellites (√A ≈ 5153.7) and
+    ``n_bds`` BDS ones, the first a GEO (C01, √A ≈ 6493.4, the −5° frame)
+    and the rest MEO (C11 on, √A ≈ 5282.6), each drawn from ``default_rng(seed)``
+    until it stays above ``min_el_deg`` along the whole drive. No ionosphere
+    coefficients: the converter's Klobuchar runs on its defaults, and so
+    does the model here.
+
+    The obs file has one C/L/D/S observable per system (C1C/L1C/D1C/S1C for
+    GPS, C2I/L2I/D2I/S2I for BDS) and an APPROX POSITION of the first epoch.
+    Pseudorange = range + Sagnac + c·(receiver clock − satellite clock) +
+    c·TGD + Klobuchar + Saastamoinen (at the rover's own position) + noise of
+    ``psr_noise`` m, the satellite at the transmission time the converter
+    computes from that pseudorange; Doppler the range rate plus the receiver
+    clock drift minus the satellite's, + 0.05 m/s of noise; carrier the
+    phase range with an integer ambiguity; C/N0 from the elevation.
+    Returns a dict of the satellites written ("sats") and the receiver
+    clock (m) per epoch ("rcv_clock").
+    """
+    from .gnss import atmosphere
+    from .gnss.converter import FREQ_B1, FREQ_L1
+    from .gnss.ephemeris import CLIGHT
+    from .gnss.rinex import parse_nav
+    from .utils import coords as C
+    rng = np.random.default_rng(seed)
+    t_gps = np.asarray(t_gps, float)
+    rover = np.asarray(rover_ecef, float)
+    E = t_gps.shape[0]
+    t_mid = t_gps[E // 2]
+    toe = 315964800.0 + np.round((t_mid - 315964800.0) / 3600.0) * 3600.0
+    sample = np.unique(np.linspace(0, E - 1, 12).astype(int))
+    min_el = np.deg2rad(min_el_deg)
+
+    header = [f"{'3.04':>9s}{'':11s}{'N: GNSS NAV DATA':<20s}{'M: MIXED':<20s}"
+              "RINEX VERSION / TYPE",
+              f"{'glio_tpu_torch':<20s}{'testing':<20s}{'':20s}PGM / RUN BY / DATE",
+              f"{'':60s}END OF HEADER"]
+
+    def write_nav(records):
+        with open(nav_path, "w") as fh:
+            fh.write("\n".join(header + [ln for s, el in records
+                                          for ln in _nav_record(s, el, toe)]) + "\n")
+        return parse_nav(nav_path)
+
+    def visible(sys_c, el):
+        eph = write_nav([(sys_c, el)])[f"{sys_c}{el['prn']:02d}"][0]
+        pos, *_ = _states([eph] * len(sample), t_gps[sample], np.full(len(sample), 2.2e7))
+        _, elev = _azel_all(pos[:, None, :], rover[sample])
+        return elev.min() > min_el
+
+    chosen = []       # (sys_c, elements)
+    wanted = [("G", n_gps if "G" in systems else 0), ("C", n_bds if "C" in systems else 0)]
+    for sys_c, n in wanted:
+        prns = iter([1] + list(range(11, 60)) if sys_c == "C" else range(1, 33))
+        prn = next(prns)
+        while sum(c[0] == sys_c for c in chosen) < n:
+            el = _candidate(rng, sys_c, prn, geo=sys_c == "C" and prn <= 5)
+            if visible(sys_c, el):
+                chosen.append((sys_c, el))
+                prn = next(prns)
+    # Every (epoch, satellite) record at once, from the elements as the
+    # file holds them.
+    nav = write_nav(chosen)
+    names = [f"{s}{el['prn']:02d}" for s, el in chosen]
+    S = len(names)
+    ephs = [nav[n][0] for n in names] * E
+    t_rx = np.repeat(t_gps, S)
+    rcv = np.repeat(rover, S, axis=0)
+    dt_r = 2e-4 + 1e-8 * (t_rx - t_gps[0])               # receiver clock (s)
+    ddt_r = 1e-8                                          # its drift (s/s)
+    v_rcv = np.repeat(np.gradient(rover, t_gps, axis=0), S, axis=0)
+    is_bds = np.array([n[0] == "C" for n in names] * E)
+    lam = np.where(is_bds, CLIGHT / FREQ_B1, CLIGHT / FREQ_L1)
+    f_scale = np.where(is_bds, (FREQ_L1 / FREQ_B1) ** 2, 1.0)
+    llh = C.ecef2llh_np(rcv)
+    _, tow = C.unix2gpst(t_rx)
+    noise = psr_noise * rng.normal(size=E * S)
+    tgd = np.array([e.tgd for e in ephs]) * CLIGHT
+    psr = np.full(E * S, 2.2e7)
+    for _ in range(3):
+        pos, vel, clk, ddt = _states(ephs, t_rx, psr)
+        az, elev = _azel_all(pos.reshape(E, S, 3), rover)
+        az, elev = az.reshape(-1), elev.reshape(-1)
+        iono = atmosphere.klobuchar(tow, llh[:, 0], llh[:, 1], az, elev) * f_scale
+        tropo = np.concatenate([atmosphere.saastamoinen(llh[e * S, 0], llh[e * S, 2],
+                                                        elev[e * S:(e + 1) * S])
+                                for e in range(E)])
+        rho = np.linalg.norm(pos - rcv, axis=-1)
+        sagnac = C.OMGE / CLIGHT * (pos[:, 0] * rcv[:, 1] - pos[:, 1] * rcv[:, 0])
+        geom = rho + sagnac + CLIGHT * dt_r - CLIGHT * clk
+        psr = geom + tgd + iono + tropo + noise
+    los = (pos - rcv) / rho[:, None]
+    rate = np.sum((vel - v_rcv) * los, -1) + C.OMGE / CLIGHT * (
+        vel[:, 0] * rcv[:, 1] + pos[:, 0] * v_rcv[:, 1]
+        - vel[:, 1] * rcv[:, 0] - pos[:, 1] * v_rcv[:, 0])
+    dopp_hz = -(rate + CLIGHT * ddt_r - ddt * CLIGHT + 0.05 * rng.normal(size=E * S)) / lam
+    amb = np.tile(rng.integers(-200000, 200000, size=S), E)
+    carrier = (geom + tropo - iono + 0.003 * rng.normal(size=E * S)) / lam + amb
+    snr = np.clip(28.0 + 22.0 * np.sin(elev) + rng.normal(size=E * S), 20.0, 55.0)
+    keep = elev > np.deg2rad(10.0)
+
+    obs_types = {"G": ("C1C", "L1C", "D1C", "S1C"), "C": ("C2I", "L2I", "D2I", "S2I")}
+    ax = rover[0]
+    out = [f"{'3.04':>9s}{'':11s}{'OBSERVATION DATA':<20s}{'M: MIXED':<20s}"
+           "RINEX VERSION / TYPE",
+           f"{'glio_tpu_torch':<20s}{'testing':<20s}{'':20s}PGM / RUN BY / DATE",
+           f"{ax[0]:14.4f}{ax[1]:14.4f}{ax[2]:14.4f}{'':18s}APPROX POSITION XYZ"]
+    for sys_c in "GC":
+        if sys_c in systems:
+            out.append(f"{sys_c}{4:5d} {' '.join(obs_types[sys_c])}".ljust(60)
+                       + "SYS / # / OBS TYPES")
+    out.append(f"{'':60s}END OF HEADER")
+    for e in range(E):
+        y, mo, d, hh, mi, ss = _gps_civil(t_gps[e])
+        rows = [r for r in range(e * S, (e + 1) * S) if keep[r]]
+        out.append(f"> {y:4d} {mo:02d} {d:02d} {hh:02d} {mi:02d}{ss:11.7f}  0{len(rows):3d}")
+        for r in rows:
+            out.append(names[r % S] + "".join(
+                f"{v:14.3f}  " for v in (psr[r], carrier[r], dopp_hz[r], snr[r])).rstrip())
+    with open(obs_path, "w") as fh:
+        fh.write("\n".join(out) + "\n")
+    return {"sats": names, "rcv_clock": CLIGHT * dt_r[::S]}
+
+
+def files_digest(*paths) -> str:
+    """sha256 of the files' bytes, in order."""
+    h = hashlib.sha256()
+    for p in paths:
+        with open(p, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()
+
+
+def gnss_drive(sc):
+    """The drive of the GNSS phase: ``drifted_trajectory(n_keyframes)`` (the
+    batch phase's 3 Hz drive) on the clock of ``GNSS_T0``, with an epoch
+    ``epoch_offset`` s after every ``epoch_stride``-th keyframe. Returns
+    (kf_time (GPS seconds on the unix epoch), p_true, q_true, p_odo, t_gps,
+    rover_ecef (E, 3) at the configured anchor)."""
+    from .config import GlioConfig
+    from .data.simulator import drifted_trajectory
+    from .utils import coords as C
+    kf_rel, p_true, q_true, p_odo = drifted_trajectory(sc["n_keyframes"], sc["max_drift"])
+    t0 = gps_unix(*GNSS_T0)
+    idx = np.arange(0, sc["n_keyframes"], sc["epoch_stride"])
+    t_gps = t0 + kf_rel[idx] + sc["epoch_offset"]
+    rover = C.enu2ecef_np(p_true[idx], np.asarray(GlioConfig().initialization.anc_ecef))
+    return t0 + kf_rel, p_true, q_true, p_odo, t_gps, rover
+
+
+# --- the GNSS phase's scenarios (``chip_smoke.py`` phase 15) --------------------------
+
+GNSS_BATCH = dict(thresholds=(1e9, 10.0, 8.0, 6.0), lm_iters=10, dd_huber=1.0,
+                  epoch_gate=2.0, rel_huber=5.0)
+# ``scripts/long_run.py:26-36`` on ``simulate_episode(seed=3)`` with GNSS at
+# every keyframe, cut from 600 keyframes to 30.
+LONG_RUN = dict(n_keyframes=30, scan_points=1024, seed=3, psr_noise=0.5, epoch_stride=1,
+                every=10)
+# Phase 7's episode with GNSS and Doppler rows in the window and the batch.
+DOPPLER_WINDOW = dict(n_keyframes=15, scan_points=1024, seed=0, gnss_seed=0, epoch_stride=1)
+
+
+def gnss_batch_config(config_module, solver="direct"):
+    """The default configuration with Doppler rows in the batch."""
+    base = config_module.GlioConfig()
+    return base.replace(estimator=dataclasses.replace(base.estimator, doppler_in_batch=True,
+                                                      batch_solver=solver))
+
+
+def long_run_config(config_module):
+    """``scripts/long_run.py:26-36``: 1024-point scans, a 16,384-point map,
+    window map width 20, 15 LM iterations, DD rows in the window (no
+    Doppler), the ``chol_pcg`` batch solver."""
+    c = config_module
+    return c.GlioConfig().replace(
+        shapes=c.ShapeConfig(max_imu_per_interval=40, scan_points=1024, map_points=16384),
+        estimator=c.EstimatorConfig(local_map_width=20, sw_max_iter=15,
+                                    gnss_in_sliding_window=True, doppler_in_window=False,
+                                    batch_solver="chol_pcg"))
+
+
+def doppler_window_config(config_module):
+    """The bench shapes (``bench.py``: 1024-point scans, a 16,384-point map,
+    window map width 50, 15 LM iterations) with DD and Doppler rows in the
+    window and Doppler rows in the batch."""
+    c = config_module
+    return c.GlioConfig().replace(
+        shapes=c.ShapeConfig(max_imu_per_interval=40, scan_points=1024, map_points=16384),
+        estimator=c.EstimatorConfig(local_map_width=50, sw_max_iter=15,
+                                    gnss_in_sliding_window=True, doppler_in_window=True,
+                                    doppler_in_batch=True))
+
+
+def gnss_episode(sc, simulate_episode, simulate_gnss_epochs, anchor, station):
+    """``simulate_episode`` of ``sc`` with ``simulate_gnss_epochs`` on its
+    truth (the caller's simulator: the JAX package's or the port's)."""
+    ep = simulate_episode(n_keyframes=sc["n_keyframes"], scan_points=sc["scan_points"],
+                          seed=sc["seed"])
+    ep.gnss = simulate_gnss_epochs(ep.gt_p, ep.kf_time, anchor, station,
+                                   psr_noise=sc.get("psr_noise", 0.5),
+                                   epoch_stride=sc["epoch_stride"],
+                                   seed=sc.get("gnss_seed", sc["seed"]))
+    ep.anchor_ecef = np.asarray(anchor)
+    return ep
+
+
+def gnss_fields_digest(g) -> dict:
+    """Per field of a ``GnssEpochs``: the sha256 of the bytes of its integer
+    and boolean arrays, [sum, sum of squares] of its float arrays."""
+    out = {}
+    for f in dataclasses.fields(g):
+        a = getattr(g, f.name)
+        if a is None:
+            continue
+        a = np.asarray(a)
+        if a.dtype.kind in "biu":
+            out[f.name] = f"{a.dtype.str}:{hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()}"
+        else:
+            out[f.name] = [float(a.sum()), float((a * a).sum())]
+    return out

@@ -94,7 +94,7 @@ def main():
                 PHASES.clear()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            carry, _ = est.step(carry, sw._index(inputs, t))
+            carry, _ = est.step(carry, sw.index_inputs(inputs, t))
             torch.cuda.synchronize()
             if t >= 5:
                 step_s += time.perf_counter() - t0
@@ -113,7 +113,7 @@ def main():
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for t in range(n_timed, T):
-            carry, _ = est.step(carry, sw._index(inputs, t))
+            carry, _ = est.step(carry, sw.index_inputs(inputs, t))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]

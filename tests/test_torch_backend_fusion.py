@@ -29,6 +29,7 @@ import torch
 from glio_tpu_torch import pipeline
 from glio_tpu_torch.config import EstimatorConfig, GlioConfig, ShapeConfig
 from glio_tpu_torch.data.simulator import simulate_episode, simulate_gnss_epochs
+from glio_tpu_torch.models.sliding_window import index_inputs
 from glio_tpu_torch.testing import divergence_episode, reset_decisions
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -161,7 +162,7 @@ def test_map_write_back_reaches_map_p_q_only(monkeypatch):
     kept = [s for s in range(M) if s not in moved]
     assert torch.equal(b_in.map_p[kept], b_out.map_p[kept])
     # A step from either carry gives the same keyframe.
-    inp = type(ep.to_inputs("cpu"))(*(a[16] for a in ep.to_inputs("cpu")))
+    inp = index_inputs(ep.to_inputs("cpu"), 16)
     _, o1 = est.step(c2_in, inp)
     _, o2 = est.step(c2_in._replace(base=c2_in.base._replace(map_p=b_out.map_p,
                                                             map_q=b_out.map_q)), inp)

@@ -187,20 +187,22 @@ def test_calibration_skips_with_few_epochs(scenario, solved):
 
 @pytest.mark.parametrize("case", ["doppler_in_batch", "chol_pcg", "unknown_solver"])
 def test_unported_options_raise(scenario, case):
+    """The two options this test once saw refused now run and match JAX
+    (f64) after one LM iteration at threshold 6 (``tests/test_torch_batch_doppler.py``
+    holds them in full); an unknown solver still raises."""
     prob = scenario["prob_t"]
-    if case == "doppler_in_batch":
-        cfg = dataclasses.replace(TCFG, estimator=dataclasses.replace(
-            TCFG.estimator, doppler_in_batch=True))
-        with pytest.raises(NotImplementedError, match="doppler_in_batch"):
-            TB.optimize_batch(cfg, prob, lm_iters=1)
-        with pytest.raises(NotImplementedError, match="doppler_in_batch"):
-            TB.batch_marginal_covariance(cfg, prob, prob.p_odo, prob.q_odo)
-    elif case == "chol_pcg":
-        with pytest.raises(NotImplementedError, match="chol_pcg"):
-            TB.optimize_batch(TCFG, prob, lm_iters=1, solver="chol_pcg")
-    else:
+    if case == "unknown_solver":
         with pytest.raises(ValueError):
             TB.solve_batch_once(TCFG, prob, prob.p_odo, prob.q_odo, 6.0, solver="lu")
+        return
+    est = dataclasses.replace(CFG.estimator, doppler_in_batch=case == "doppler_in_batch")
+    cfg = CFG.replace(estimator=est)
+    solver = "chol_pcg" if case == "chol_pcg" else "direct"
+    kw = dict(thresholds=(6.0,), lm_iters=1, solver=solver)
+    p_j, _, c_j = JB.optimize_batch(cfg, scenario["prob_j"], mixed=False, **kw)
+    p_t, _, c_t = TB.optimize_batch(convert.config_from_glio(cfg), prob, **kw)
+    np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), rtol=0, atol=1e-8)
+    assert c_t[0] == pytest.approx(c_j[0], rel=1e-10)
 
 
 def test_batch_problem_from_numpy_dtypes(scenario):

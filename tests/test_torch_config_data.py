@@ -101,11 +101,24 @@ def test_range_image_helpers_bit_identical():
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("name", ["GnssEpochs", "Episode"])
+def test_episode_field_lists_equal(name):
+    """``GnssEpochs`` and ``Episode`` carry the JAX package's fields, in its
+    order, so ``save`` / ``load`` files and ``convert.gnss_from_numpy`` pass
+    between the two."""
+    from glio_tpu.data import episode as jep
+    from glio_tpu_torch.data import episode as tep
+    names = lambda cls: [(f.name, f.default is dataclasses.MISSING)
+                         for f in dataclasses.fields(cls)]
+    assert names(getattr(tep, name)) == names(getattr(jep, name))
+
+
 def test_episode_to_inputs_dtypes():
     import torch
     inp = port_simulate(n_keyframes=3, scan_points=64, seed=1).to_inputs("cpu")
     assert inp.scan.dtype == torch.float32 and inp.imu_acc.dtype == torch.float64
     assert inp.imu_valid.dtype == torch.bool and inp.scan.shape == (3, 64, 3)
+    assert inp.gnss.whiten.shape == (3, 4, 32, 32) and not inp.gnss.valid.any()
 
 
 def test_port_imports_no_jax():

@@ -1,9 +1,10 @@
 """The port's CUDA path on the card: the k-NN kernel (single problems and
 batches of keyframe pairs, the loop-closure ICP's 1024 x 25,600 among them)
-and the copy kernel against their plain versions, bit for bit, the probe,
+and the copy kernel against their plain versions, bit for bit, the f32
+band Cholesky kernel against its plain version and ``chol_pcg``, the probe,
 the replay, the batch stage, batch level 1, stage 3, backend fusion, the
-LOAM features and the LiDAR odometry on the card against the same code on
-the CPU.
+LOAM features, the LiDAR odometry, SPP and the GNSS window on the card
+against the same code on the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 no jax, so it runs on a machine that has only torch:
@@ -25,6 +26,7 @@ from glio_tpu_torch.data.simulator import (drifted_trajectory, random_walk_odome
 from glio_tpu_torch.lidar import neighbors
 from glio_tpu_torch.models import batch
 from glio_tpu_torch.models.sliding_window import SlidingWindowEstimator
+from glio_tpu_torch.ops import band_chol
 from glio_tpu_torch.ops import knn as knn_mod
 from glio_tpu_torch.ops import probe
 from glio_tpu_torch.solver import banded
@@ -203,6 +205,50 @@ def test_cyclic_reduction_on_card_matches_cpu(cuda):
     assert (x_g - x_c).abs().max() <= 1e-10 * x_c.abs().max()
     r = banded.band_matvec(torch.tensor(band), x_g) - torch.tensor(b)
     assert r.abs().max() < 1e-9
+
+
+def _stiff_band(device, broken=False):
+    """The level-0 band at T = 300 at the odometry, threshold 6, the bench
+    robust options and damping 1e-6 (a chain where chol_pcg's 14 CG
+    iterations stop short); ``broken`` negates block row 150's diagonal
+    block, so its f32 Cholesky breaks down there."""
+    cfg, prob = _batch_problem(device)
+    hw = cfg.estimator.search_range + 1
+    band, grad, *_ = batch._assemble_core_impl(
+        prob.p_odo, prob.q_odo, prob, 6.0, hw,
+        robust=batch.RobustOpts(dd_huber=1.0, epoch_gate=2.0, rel_huber=5.0),
+        plan=batch.assembly_plan(prob, hw))
+    batch._damp(band, torch.tensor(1e-6, dtype=torch.float64, device=device), hw)
+    if broken:
+        band[150, hw] = -band[150, hw]
+    return band, -grad
+
+
+@pytest.mark.parametrize("broken", [False, True], ids=["sound", "broken_row"])
+def test_band_cholesky_kernel_matches_plain_version(cuda, broken):
+    """The f32 factor kernel against ``block_cholesky`` on the card, one
+    launch: NaN in the same rows (block row 150 alone where it breaks) and
+    the rest within 2e-5 of the largest entry (chip_smoke.BAND_CHOL_RTOL)."""
+    band, _ = _stiff_band(cuda, broken)
+    band_s = banded._equilibrate(band)[0].to(torch.float32).contiguous()
+    before = band_chol.band_cholesky.launches
+    L_k = band_chol.band_cholesky(band_s, 3e-4)
+    L_p = banded.block_cholesky(band_s, jitter=3e-4)
+    assert band_chol.band_cholesky.launches == before + 1
+    bad = ~torch.isfinite(L_p).flatten(1).all(1)
+    assert torch.equal(torch.isfinite(L_k), torch.isfinite(L_p))
+    assert torch.nonzero(bad).flatten().tolist() == ([150] if broken else [])
+    fin = torch.isfinite(L_p)
+    assert (L_k - L_p)[fin].abs().max() <= 2e-5 * L_p[fin].abs().max()
+
+
+def test_chol_pcg_on_card_matches_cpu(cuda):
+    """``pcg_chol_solve`` on the stiff chain, card (the kernel's factor)
+    against CPU (``block_cholesky``): 14 iterations stop 2.8e-4 of |x| short
+    of the exact step (CPU), so each side's f32 rounding shows; they agree
+    within 1e-5 of |x|."""
+    x = [banded.pcg_chol_solve(*_stiff_band(dev)).cpu() for dev in (cuda, "cpu")]
+    assert (x[0] - x[1]).abs().max() <= 1e-5 * x[1].abs().max()
 
 
 @pytest.mark.parametrize("case", sorted(KNN_PAIR_CASES))
@@ -399,3 +445,59 @@ def test_odometry_on_card_matches_cpu(cuda):
     assert torch.equal(out_g.is_keyframe.cpu(), out_c.is_keyframe)
     assert float((out_g.p.cpu() - out_c.p).abs().max()) <= 10 * spread
     assert int(out_c.n_matches[-1]) > 300
+
+
+def test_spp_on_card_matches_cpu(cuda, tmp_path):
+    """SPP, Doppler velocity and DOP of the synthetic RINEX's epochs (the
+    port's writer and converter) in one call on the card against the CPU:
+    ok masks equal, fixes within 1e-6 m (f64 sums in another order)."""
+    from glio_tpu_torch import testing
+    from glio_tpu_torch.gnss import converter, spp, tools
+    sc = dict(testing.GNSS_DRIVE, n_keyframes=180)
+    _, _, _, _, t_gps, rover = testing.gnss_drive(sc)
+    obs, nav = str(tmp_path / "d.obs"), str(tmp_path / "d.nav")
+    testing.write_synthetic_rinex(obs, nav, t_gps, rover, seed=sc["seed"])
+    station = np.asarray(GlioConfig().initialization.station_ecef)
+    g = converter.convert(obs, nav, station)
+    outs = {}
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.as_tensor(np.asarray(a), device=dev)
+        x, clk, ok, _ = spp.solve_epochs(t(g.sat_pos), t(g.psr_rov_corr),
+                                         t(g.system.astype(np.int32)), t(g.valid),
+                                         t(g.elevation), t(g.snr), t(station))
+        v, ddt = spp.doppler_velocity(t(g.sat_pos), t(g.sat_vel), t(g.dopp_rov),
+                                      t(g.system), t(g.valid), t(g.elevation), t(g.snr), x)
+        gdop = tools.dop(x, t(g.sat_pos), t(g.valid))[0]
+        outs[str(dev)] = [a.cpu().numpy() for a in (x, clk, ok, v, ddt, gdop)]
+    (xc, cc, okc, vc, dc, gc), (xg, cg, okg, vg, dg, gg) = outs["cpu"], outs[str(cuda)]
+    assert np.array_equal(okg, okc) and okc.all()
+    np.testing.assert_allclose(xg, xc, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(cg, cc, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(vg, vc, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(gg, gc, rtol=1e-9)
+
+
+def test_gnss_window_step_on_card_matches_cpu(cuda):
+    """One GNSS-window replay (DD and Doppler rows, the clock-drift state)
+    on the card against the CPU: n_lidar_factors equal, positions within
+    1e-6 m and the drift within 1e-6 m/s."""
+    cfg = GlioConfig().replace(
+        shapes=ShapeConfig(max_imu_per_interval=40, scan_points=256, map_points=2048),
+        estimator=EstimatorConfig(local_map_width=8, sw_max_iter=4, gnss_in_sliding_window=True,
+                                  doppler_in_window=True))
+    ep = simulate_episode(n_keyframes=6, scan_points=256, seed=1)
+    ep.gnss = simulate_gnss_epochs(ep.gt_p, ep.kf_time, np.asarray(cfg.initialization.anc_ecef),
+                                   np.asarray(cfg.initialization.station_ecef), psr_noise=0.3,
+                                   epoch_stride=1, seed=1)
+    outs = {}
+    for dev in ("cpu", cuda):
+        before = knn_mod.knn.launches
+        est = SlidingWindowEstimator(cfg, dev)
+        outs[str(dev)] = est(ep.to_inputs(dev), ep.p0, ep.q0, ep.v0, ep.acc0, ep.gyr0)
+        launched = knn_mod.knn.launches - before
+    assert launched == 6
+    oc, og = outs["cpu"], outs[str(cuda)]
+    assert torch.equal(og.n_lidar_factors.cpu(), oc.n_lidar_factors)
+    np.testing.assert_allclose(og.p.cpu().numpy(), oc.p.numpy(), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(og.ddt.cpu().numpy(), oc.ddt.numpy(), rtol=0, atol=1e-6)
+    assert (oc.ddt[1:] != 0).all()

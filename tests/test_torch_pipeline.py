@@ -127,10 +127,26 @@ def _with(cfg, **kw):
 
 
 @pytest.mark.parametrize("case", ["doppler_in_batch"])
-def test_unported_options_raise_before_running(case):
-    cfg = _with(TCFG, doppler_in_batch=True)
-    with pytest.raises(NotImplementedError):
-        run_pipeline(_port_episode(), cfg, device="cpu")
+def test_unported_options_raise_before_running(case, runs):
+    """``doppler_in_batch``, once refused before anything ran, now runs
+    through ``run_pipeline``: its stage-2 batch with Doppler rows against
+    JAX's ``run_pipeline`` with Doppler rows (batch in f64) on the same
+    episode, at this module's tolerance, and the Doppler rows move it."""
+    res_plain = runs[0]
+    cfg_j = CFG.replace(estimator=dataclasses.replace(CFG.estimator, doppler_in_batch=True))
+    ep_j = jax_simulate_episode(n_keyframes=6, scan_points=256, seed=1)
+    ep_j.gnss = jax_simulate_gnss(ep_j.gt_p, ep_j.kf_time, ANCHOR, STATION,
+                                  epoch_stride=1, seed=0)
+    ep_j.anchor_ecef = ANCHOR
+    with unittest.mock.patch.object(JB, "optimize_batch",
+                                    functools.partial(JB.optimize_batch, mixed=False)):
+        res_j = jax_run_pipeline(ep_j, cfg_j, run_lc=False)
+    res = run_pipeline(_port_episode(), _with(TCFG, doppler_in_batch=True), run_lc=False,
+                       device="cpu")
+    np.testing.assert_allclose(res.p_sw, res_j.p_sw, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(res.p_batch, res_j.p_batch, rtol=0, atol=1e-4)
+    assert np.abs(np.asarray(res_j.p_batch) - np.asarray(res_plain.p_batch)).max() > 1e-3
+    assert res.p_lc is None and np.isfinite(res.cov_batch).all()
 
 
 def test_probe_exits_1_without_cuda():

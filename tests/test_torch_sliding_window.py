@@ -22,7 +22,8 @@ from glio_tpu.config import EstimatorConfig, GlioConfig, ShapeConfig
 from glio_tpu.data.simulator import simulate_episode
 from glio_tpu.models.sliding_window import make_replay as jax_make_replay
 from glio_tpu_torch import convert
-from glio_tpu_torch.models.sliding_window import (KeyframeInput,
+from glio_tpu_torch.gnss.dd import bind_epochs_to_keyframes
+from glio_tpu_torch.models.sliding_window import (GnssKfData, KeyframeInput,
                                                   SlidingWindowEstimator,
                                                   make_replay)
 
@@ -44,9 +45,11 @@ def jax_replay():
 
 
 def _port_inputs(ep, sl=slice(None)):
+    bound = bind_epochs_to_keyframes(ep.gnss, ep.kf_time, 32)
     return convert.inputs_from_numpy(
         ep.imu_acc[sl], ep.imu_gyr[sl], ep.imu_dt[sl], ep.imu_valid[sl],
-        ep.scan[sl], ep.scan_valid[sl], ep.kf_time[sl], device="cpu")
+        ep.scan[sl], ep.scan_valid[sl], ep.kf_time[sl], device="cpu",
+        gnss={k: v[sl] for k, v in bound.items()})
 
 
 FIELDS = ("p", "q", "cost", "n_lidar_factors")
@@ -100,26 +103,46 @@ def test_resume_from_jax_carry(episode, jax_replay):
 
 
 def test_inputs_match_jax_episode(episode):
-    """``Episode.to_inputs`` dtypes: scans f32, IMU data f64, masks bool."""
+    """``Episode.to_inputs`` dtypes: scans f32, IMU data f64, masks bool;
+    the bound GNSS fields (zeros here: no GNSS) field by field."""
     t = _port_inputs(episode)
     j = episode.to_inputs()
     for f in KeyframeInput._fields:
-        a, b = getattr(t, f), np.asarray(getattr(j, f))
-        assert a.numpy().dtype == b.dtype, f
-        np.testing.assert_array_equal(a.numpy(), b)
+        a, b = getattr(t, f), getattr(j, f)
+        pairs = (zip(a, b) if f == "gnss" else [(a, b)])
+        for x, y in pairs:
+            y = np.asarray(y)
+            assert x.numpy().dtype == y.dtype, f
+            np.testing.assert_array_equal(x.numpy(), y)
+    assert type(t.gnss) is GnssKfData and len(t.gnss) == len(j.gnss)
 
 
 @pytest.mark.parametrize("override", [
-    {"estimator": EstimatorConfig(gnss_in_sliding_window=True)},
+    {"estimator": EstimatorConfig(local_map_width=8, sw_max_iter=4,
+                                  gnss_in_sliding_window=True, doppler_in_window=False)},
 ])
 def test_unported_options_raise(override):
-    with pytest.raises(NotImplementedError):
-        SlidingWindowEstimator(convert.config_from_glio(CFG.replace(**override)), "cpu")
+    """Once refused, ``gnss_in_sliding_window`` now runs: this episode with
+    simulated GNSS at every keyframe, DD rows in the window, against JAX's
+    replay within the module's tolerances."""
+    from glio_tpu.data.simulator import simulate_gnss_epochs
+    cfg = CFG.replace(**override)
+    ep = simulate_episode(n_keyframes=6, scan_points=256, seed=1)
+    ep.gnss = simulate_gnss_epochs(ep.gt_p, ep.kf_time, np.asarray(cfg.initialization.anc_ecef),
+                                   np.asarray(cfg.initialization.station_ecef), psr_noise=0.3,
+                                   epoch_stride=1, seed=1)
+    out_j = jax_make_replay(cfg)[0](ep.to_inputs(), ep.p0, ep.q0, ep.v0, ep.acc0, ep.gyr0)
+    est = SlidingWindowEstimator(convert.config_from_glio(cfg), "cpu")
+    out_t = est(_port_inputs(ep), ep.p0, ep.q0, ep.v0, ep.acc0, ep.gyr0)
+    for field in FIELDS:
+        _check(out_t, out_j, field)
+    assert bool(out_t.n_lidar_factors[-1] > 100)
 
 
 def test_estimator_buffers_follow_device():
     est = SlidingWindowEstimator(convert.config_from_glio(CFG), "cpu")
     names = {n for n, _ in est.named_buffers()}
-    assert names == {"gravity", "noise_cov", "q_lb", "t_lb"}
+    assert names == {"gravity", "noise_cov", "q_lb", "t_lb", "anc_ecef", "station_ecef",
+                     "lever_arm", "yaw_enu_local"}
     assert est.device == torch.device("cpu")
     assert not torch.backends.cuda.matmul.allow_tf32
