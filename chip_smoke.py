@@ -156,7 +156,14 @@ Phases, each of which raises on failure:
     robust options): direct twice, bit-identical and within 10x JAX's own
     spread under a +-1e-9 m nudge of the odometry, then ``chol_pcg`` (14 CG
     iterations, 1.1e-2 m short of the exact solve), within 10x JAX's own
-    spread under a 1-ulp rescaling of its f32 preconditioner;
+    spread under a 1-ulp rescaling of its f32 preconditioner, its factor
+    kernel launched once an LM iteration and its solve kernel 15 times; each
+    kernel against its plain version on the first LM iteration's band
+    (``block_cholesky`` within 2e-5 of the largest entry, NaN rows equal;
+    ``block_cholesky_solve`` within the larger of 2e-5 of max |x| and 10x
+    its own f32 round-off against f64), timed beside its bound and a dense
+    yardstick (``cholesky_ex``; two ``solve_triangular``), and ``chol_pcg``'s
+    seconds split into factor, applies and the rest;
     ``scripts/long_run.py``'s configuration (window width 20, DD rows in the
     window, ``chol_pcg``) on 30 keyframes of ``simulate_episode(seed=3)``
     through ``run_pipeline(..., backend_fusion_every=10)``: the kNN once a
@@ -236,6 +243,9 @@ DOPP_WINDOW_FIXTURE = os.path.join(ROOT, "tests", "data", "window_doppler_seed0.
 SPP_TOL_M = 1e-6              # SPP fixes, Doppler velocities (m/s) against JAX's
 GNSS_SUM_RTOL = 1e-12         # checksums of converted epochs and problems (round-off)
 BAND_CHOL_RTOL = 2e-5         # f32 band factor, kernel vs plain, of its largest entry
+BAND_SOLVE_RTOL = 2e-5        # f32 band solve, kernel vs plain, of max |x| (or 10x the
+                              # plain version's own f32 round-off, where that is larger)
+CHOL_PCG_APPLIES = 15         # preconditioner applies an LM iteration: 1 + 14 CG iterations
 RAYCAST_WORKERS = 8          # host processes that raycast the raw frames
 SCAN_PERIOD_MS = 100.0        # a 10 Hz scan
 SOLVE_CAP_MS = 15.0           # the reference odometry's solve cap (LidarOdometry.cpp:523-524)
@@ -1456,7 +1466,8 @@ def gnss_batch_phase(dev, fx, drive, g):
     """15.3: level 0 with Doppler rows at T = 3493 on the converted epochs:
     the direct solver twice (bit-identical), then ``chol_pcg``, each held to
     JAX's (see the gates below), its f32 factor's kernel launched once an LM
-    iteration. Returns that kernel's record (``band_chol_record``)."""
+    iteration and its solve kernel 15 times. Returns the two kernels' records
+    (``band_chol_record``, ``band_chol_solve_record``)."""
     kf_time, p_true, q_true, p_odo = drive[:4]
     cfg = testing.gnss_batch_config(config_mod)
     anchor = np.asarray(cfg.initialization.anc_ecef)
@@ -1481,11 +1492,15 @@ def gnss_batch_phase(dev, fx, drive, g):
     s2, (p2, q2, c2) = _sync_s(lambda: solve("direct"))
     check(torch.equal(p1, p2) and torch.equal(q1, q2) and c1 == c2,
           "two Doppler batch solves on the card differ")
-    band_chol_mod.band_cholesky.launches = 0
+    band_chol_mod.band_cholesky.launches = band_chol_mod.band_cholesky_solve.launches = 0
     s3, (p3, q3, _) = _sync_s(lambda: solve("chol_pcg"))
     chol_launches = band_chol_mod.band_cholesky.launches
+    solve_launches = band_chol_mod.band_cholesky_solve.launches
     check(dev.type != "cuda" or chol_launches == n_iter,
           f"band_cholesky launched {chol_launches} times in {n_iter} chol_pcg LM iterations")
+    check(dev.type != "cuda" or solve_launches == CHOL_PCG_APPLIES * n_iter,
+          f"band_cholesky_solve launched {solve_launches} times in {n_iter} chol_pcg LM "
+          f"iterations ({CHOL_PCG_APPLIES} applies each)")
     # The direct solve: 10x JAX's own spread under a +-1e-9 m nudge of the
     # odometry. chol_pcg stops after 14 CG iterations, 1.1e-2 m short of the
     # exact solve on this drive, so its result moves with the f32 rounding
@@ -1516,16 +1531,25 @@ def gnss_batch_phase(dev, fx, drive, g):
           f"({1e3 * s3 / n_iter:.2f} ms per LM iteration)")
     print(f"gnss batch vs JAX (f64): " + "; ".join(report)
           + f"; odometry RMSE {_rmse(p_odo, p_true):.4f} m")
-    # The f32 factor kernel at the solve's own input: the equilibrated band
-    # of its first LM iteration.
+    # The f32 factor and solve kernels at the solve's own input: the
+    # equilibrated band of its first LM iteration, and the first apply's
+    # right-hand side with that band's preconditioner.
     hw = cfg.estimator.search_range + 1
-    band, _, _, _, _ = batch_mod._assemble_core_impl(
+    band, grad, _, _, _ = batch_mod._assemble_core_impl(
         prob.p_odo, prob.q_odo, prob, gb["thresholds"][0], hw, robust=robust,
         plan=batch_mod.assembly_plan(prob, hw, True), use_doppler=True)
     batch_mod._damp(band, torch.tensor(1e-4, dtype=torch.float64, device=dev), hw)
     rec = band_chol_record(dev, banded._equilibrate(band)[0].to(torch.float32).contiguous())
-    rec["launches"] = chol_launches
-    return rec
+    M = banded.f32_chol_precond(band)
+    solve_rec = band_chol_solve_record(dev, M.Lb, (-grad * M.s).to(torch.float32))
+    rec["launches"], solve_rec["launches"] = chol_launches, solve_launches
+    if dev.type == "cuda":
+        k_s = chol_launches * rec["ms"] / 1e3
+        a_s = solve_launches * solve_rec["ms"] / 1e3
+        print(f"chol_pcg T={T} split by kernel times x launches: factor {k_s:.3f} s "
+              f"({chol_launches} x {rec['ms']:.3f} ms), applies {a_s:.3f} s ({solve_launches} "
+              f"x {solve_rec['ms']:.3f} ms), the rest {s3 - k_s - a_s:.3f} s of {s3:.3f} s")
+    return rec, solve_rec
 
 
 def _dense(band):
@@ -1587,11 +1611,87 @@ def band_chol_record(dev, band_s, jitter=3e-4):
                "matrix + jitter·I: the same factor, dense; yardstick only")
     del dense
     print(f"band_cholesky {rec['shape']}: kernel vs plain {rel:.3e} of the largest entry (tol "
-          f"{BAND_CHOL_RTOL}), NaN rows equal; kernel {rec['ms']:.3f} ms, plain torch "
-          f"{rec['plain_ms']:.1f} ms, dense cholesky_ex {rec['library_ms']:.3f} ms (yardstick); "
-          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: {bytes_ / 1e6:.1f} MB, "
-          f"{ops / 1e6:.1f} M FP32 ops), kernel at {rec['bound_ms'] / rec['ms']:.2e} of it: "
-          f"one thread block walks the {T} dependent rows")
+          f"{BAND_CHOL_RTOL}), NaN rows equal; kernel {rec['ms']:.3f} ms ({1e3 * rec['ms'] / T:.3f} "
+          f"us a row), plain torch {rec['plain_ms']:.1f} ms, dense cholesky_ex "
+          f"{rec['library_ms']:.3f} ms (yardstick); bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']}: {bytes_ / 1e6:.1f} MB, {ops / 1e6:.1f} M FP32 ops), kernel at "
+          f"{rec['bound_ms'] / rec['ms']:.2e} of it: one thread block walks the {T} dependent "
+          f"rows")
+    return rec
+
+
+def _dense_lower(Lb):
+    """The dense lower-triangular (T·D, T·D) factor of ``block_cholesky``'s
+    blocks Lb (T, hw + 1, D, D)."""
+    T, R, D, _ = Lb.shape
+    dense = torch.zeros((T * D, T * D), dtype=Lb.dtype, device=Lb.device)
+    t = torch.arange(T, device=Lb.device)
+    d = torch.arange(D, device=Lb.device)
+    for m in range(R):
+        ok = t - m >= 0
+        rows, cols = t[ok][:, None] * D + d, (t[ok] - m)[:, None] * D + d
+        dense[rows[:, :, None], cols[:, None, :]] = Lb[t[ok], m]
+    return dense
+
+
+def band_chol_solve_record(dev, Lb, rhs):
+    """The f32 band solve kernel (``ops.band_chol.band_cholesky_solve``) on
+    ``chol_pcg``'s factor and a right-hand side of its apply: against its
+    plain version (``banded.block_cholesky_solve``) within the larger of
+    ``BAND_SOLVE_RTOL`` and 10x the plain version's own f32 round-off (its
+    distance to the same sweeps in f64 on the same Lb), of max |x|; then
+    kernel, plain and two dense ``solve_triangular`` calls timed beside the
+    bound. Returns the record."""
+    x_k = band_chol_mod.band_cholesky_solve(Lb, rhs)
+    x_p = banded.block_cholesky_solve(Lb, rhs)
+    x_64 = banded.block_cholesky_solve(Lb.double(), rhs.double())
+    scale = float(x_p.abs().max())
+    roundoff = float((x_p.double() - x_64).abs().max()) / scale
+    tol = max(BAND_SOLVE_RTOL, 10.0 * roundoff)
+    check(bool(torch.isfinite(x_k).all()), "band_cholesky_solve: kernel output not finite")
+    err = float((x_k - x_p).abs().max())
+    rel = err / scale
+    check(rel <= tol, f"band_cholesky_solve: kernel vs plain {rel} of max |x| > {tol}")
+    T, R, D, _ = Lb.shape
+    rec = {"max_abs_err": err, "rel_err": rel, "plain_f32_roundoff": roundoff,
+           "shape": f"T={T}, hw={R - 1}, D={D}"}
+    if dev.type != "cuda":
+        print(f"band_cholesky_solve {rec['shape']}: kernel == plain (the CPU runs the plain "
+              f"version); plain f32 vs f64 {roundoff:.3e} of max |x|")
+        return rec
+    hw = R - 1
+    # Operations these sweeps need (no FMA): per row, each block's matvec
+    # (D dots of D products and D - 1 sums) and its D subtractions, then the
+    # triangular substitution (D(D - 1) products and subtractions, D
+    # divisions); forward over m <= min(hw, t), backward over m <= min(hw,
+    # T - 1 - t).
+    per_block, subst = D * 2 * D, D * D
+    ops = sum((min(hw, t) + min(hw, T - 1 - t)) * per_block + 2 * subst for t in range(T))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bytes_ = T * R * D * D * 4 + 2 * T * D * 4   # Lb once, b in, x out
+    ops_ms = ops / (sms * 128 * gpu_clock_mhz() * 1e3)
+    bytes_ms = bytes_ / (HBM_GB_S * 1e6)
+    dense = _dense_lower(Lb)
+    col = rhs.reshape(-1, 1)
+
+    def library():
+        y = torch.linalg.solve_triangular(dense, col, upper=False)
+        return torch.linalg.solve_triangular(dense.mT, y, upper=True)
+    rec.update(ms=time_device_ms(lambda: band_chol_mod.band_cholesky_solve(Lb, rhs), reps=20),
+               plain_ms=time_device_ms(lambda: banded.block_cholesky_solve(Lb, rhs), reps=1),
+               library_ms=time_device_ms(library, reps=3),
+               bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms > bytes_ms
+               else "bytes", library_call="two torch.linalg.solve_triangular calls on the dense "
+               "(T·D)² f32 factor: the same sweeps, dense; yardstick only")
+    del dense
+    print(f"band_cholesky_solve {rec['shape']}: kernel vs plain {rel:.3e} of max |x| (tol "
+          f"{tol:.3e}: the larger of {BAND_SOLVE_RTOL} and 10x the plain version's f32 "
+          f"round-off against f64 on the same Lb, {roundoff:.3e}); kernel {rec['ms']:.4f} ms "
+          f"({1e3 * rec['ms'] / T:.3f} us a row), plain torch {rec['plain_ms']:.1f} ms, dense "
+          f"solve_triangular x 2 {rec['library_ms']:.3f} ms (yardstick); bound "
+          f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}: {bytes_ / 1e6:.2f} MB, "
+          f"{ops / 1e6:.2f} M FP32 ops), kernel at {rec['bound_ms'] / rec['ms']:.2e} of it: "
+          f"one warp walks the {T} dependent rows twice")
     return rec
 
 
@@ -1635,7 +1735,7 @@ def _gnss_pipeline(dev, cfg, ep, **kw):
     """``run_pipeline`` on ``dev`` with the backend fusion's debug lines,
     each fusion solve timed and the window's outputs recorded. Returns
     (seconds, result, CSV rows, debug lines, fusion seconds, recorder, kNN
-    launches, band-Cholesky launches)."""
+    launches, band-Cholesky factor and solve launches)."""
     buf = io.StringIO()
     fusion = pipeline.replay_with_backend_fusion
     pipeline.replay_with_backend_fusion = lambda *a, **k: fusion(*a, debug=True, **k)
@@ -1643,9 +1743,11 @@ def _gnss_pipeline(dev, cfg, ep, **kw):
         with tempfile.TemporaryDirectory() as tmp, _timed_fusion() as fusion_s, \
                 contextlib.redirect_stdout(buf), _StepRecorder() as rec:
             knn_mod.knn.launches = band_chol_mod.band_cholesky.launches = 0
+            band_chol_mod.band_cholesky_solve.launches = 0
             run_s, res = _sync_s(lambda: run_pipeline(ep, cfg, out_dir=tmp, device=dev, **kw))
             launches = knn_mod.knn.launches
-            chol_launches = band_chol_mod.band_cholesky.launches
+            chol_launches = (band_chol_mod.band_cholesky.launches,
+                             band_chol_mod.band_cholesky_solve.launches)
             rows = {n: np.loadtxt(os.path.join(tmp, n + ".csv"), delimiter=",", ndmin=2)
                     for n in ("tc_sw_result", "tc_batch_result")}
     finally:
@@ -1656,7 +1758,8 @@ def _gnss_pipeline(dev, cfg, ep, **kw):
 def long_run_phase(dev):
     """15.4: the long-run configuration (``scripts/long_run.py:26-36``) on
     30 keyframes through ``run_pipeline(..., backend_fusion_every=10)``.
-    Returns the kNN and band-Cholesky launches."""
+    Returns the kNN launches and the band-Cholesky factor and solve
+    launches."""
     cfg = testing.long_run_config(config_mod)
     fx, sc = _gnss_scenario(LONG_RUN_FIXTURE, cfg, testing.LONG_RUN)
     T = sc["n_keyframes"]
@@ -1667,8 +1770,10 @@ def long_run_phase(dev):
         dev, cfg, ep, backend_fusion_every=sc["every"])
     check(dev.type != "cuda" or launches == T,
           f"knn launched {launches} times in {T} keyframes of the long run")
-    check(dev.type != "cuda" or chol_launches > 0,
-          "band_cholesky never launched in the long run's chol_pcg solves")
+    n_chol, n_solve = chol_launches
+    check(dev.type != "cuda" or (n_chol > 0 and n_solve == CHOL_PCG_APPLIES * n_chol),
+          f"the long run's chol_pcg solves launched band_cholesky {n_chol} times and "
+          f"band_cholesky_solve {n_solve} times ({CHOL_PCG_APPLIES} an LM iteration)")
     nlf = rec.field("n_lidar_factors")
     check(np.array_equal(nlf, fx["n_lidar_factors"]),
           f"n_lidar_factors {nlf.tolist()} != JAX {fx['n_lidar_factors'].tolist()}")
@@ -1690,8 +1795,9 @@ def long_run_phase(dev):
           f"{10 * float(fx['sw_nudge_dp']):.3e}), tc_batch_result {d_bt:.3e} m (tol "
           f"{10 * float(fx['batch_nudge_dp']):.3e}): 10x JAX's own spread under +-1e-9 m nudges "
           f"of p0; ATE RMSE stage 1 {_rmse(res.p_sw, ep.gt_p):.3f} m, batch "
-          f"{_rmse(res.p_batch, ep.gt_p):.3f} m; band_cholesky launches {chol_launches}")
-    return launches, chol_launches
+          f"{_rmse(res.p_batch, ep.gt_p):.3f} m; band_cholesky launches {n_chol}, "
+          f"band_cholesky_solve {n_solve}")
+    return launches, n_chol, n_solve
 
 
 def doppler_window_phase(dev):
@@ -1733,13 +1839,13 @@ def doppler_window_phase(dev):
 def gnss_phase(dev):
     """Phase 15, GNSS: RINEX input, SPP, the Doppler batch, the long-run
     configuration and the Doppler window. Returns the kNN launches of the
-    long run and of the Doppler window, and the band-Cholesky kernel's
-    record."""
+    long run and of the Doppler window, and the band-Cholesky factor and
+    solve kernels' records."""
     fx, drive, g = rinex_phase(dev)
     spp_phase(dev, fx, drive, g)
-    chol = gnss_batch_phase(dev, fx, drive, g)
-    long_launches, chol["launches_long_run"] = long_run_phase(dev)
-    return long_launches, doppler_window_phase(dev), chol
+    chol, solve = gnss_batch_phase(dev, fx, drive, g)
+    long_launches, chol["launches_long_run"], solve["launches_long_run"] = long_run_phase(dev)
+    return long_launches, doppler_window_phase(dev), chol, solve
 
 
 def main():
@@ -1766,7 +1872,7 @@ def main():
     knn_kern["loop_verify"] = loop_rec
     knn_kern["max_abs_err"] = max(knn_kern["max_abs_err"], loop_rec["max_abs_err"],
                                   odo_rec["max_abs_err"], win_rec["max_abs_err"])
-    long_launches, dopp_launches, chol_kern = gnss_phase(dev)
+    long_launches, dopp_launches, chol_kern, solve_kern = gnss_phase(dev)
     knn_kern["launches_by_path"] = {"replay": launches, "backend_fusion": fusion_launches,
                                     "loop_closure": loop_launches, "odometry": odo_launches,
                                     "raw_input_replay": raw_launches,
@@ -1780,9 +1886,13 @@ def main():
         {"name": "copy_f32", "route": "cuda", "source": "glio_tpu_torch/csrc/copy.cu",
          "replaces": "scripts/probe_pallas.py:28", "launches": copy_launches, **copy_kern},
         {"name": "band_chol_f32", "route": "cuda", "source": "glio_tpu_torch/csrc/band_chol.cu",
-         "replaces": "glio_tpu/solver/banded.py:263",
+         "replaces": "glio_tpu/solver/banded.py:135",
          "replaces_note": "no Pallas kernel: the plain-JAX block_cholesky (a lax.scan) that "
-                          "_f32_chol_precond calls in f32", **chol_kern}]}))
+                          "_f32_chol_precond calls in f32", **chol_kern},
+        {"name": "band_chol_solve_f32", "route": "cuda",
+         "source": "glio_tpu_torch/csrc/band_chol.cu", "replaces": "glio_tpu/solver/banded.py:184",
+         "replaces_note": "no Pallas kernel: the plain-JAX block_cholesky_solve (two lax.scans) "
+                          "that _f32_chol_precond's apply calls in f32", **solve_kern}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

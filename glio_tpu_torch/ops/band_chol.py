@@ -1,10 +1,13 @@
-"""The f32 block-banded Cholesky factor of ``chol_pcg``'s preconditioner: the
-CUDA kernel ``csrc/band_chol.cu`` and its plain version.
+"""The f32 block-banded Cholesky factor and solve of ``chol_pcg``'s
+preconditioner: the CUDA kernels of ``csrc/band_chol.cu`` and their plain
+versions.
 
-``band_cholesky`` computes ``solver/banded.block_cholesky`` of an f32 band.
-On a CUDA tensor it launches the kernel, which walks the T block rows in one
-thread block in the plain version's order of operations, or raises; on a
-CPU tensor it runs ``block_cholesky``. Nothing falls back from one to the
+``band_cholesky`` computes ``solver/banded.block_cholesky`` of an f32 band,
+``band_cholesky_solve`` ``solver/banded.block_cholesky_solve`` with its
+factor. On a CUDA tensor each launches its kernel, which walks the T block
+rows in one thread block (the factor in the plain version's order of
+operations, the solve in its order of block rows), or raises; on a CPU
+tensor each runs its plain version. Nothing falls back from one to the
 other.
 """
 
@@ -13,52 +16,102 @@ import functools
 
 import torch
 
-from ..solver.banded import block_cholesky
+from ..solver.banded import block_cholesky, block_cholesky_solve
 from . import _build, _launch
 
-MAX_D = 8           # csrc/band_chol.cu: kMaxD
-MAX_HW = 15         # kMaxRow − 1
+KERNEL_D = 6        # csrc/band_chol.cu: kD, the batch's pose blocks
+MAX_HW = 15         # kMaxHw
 
 
-def _check(band):
-    if not isinstance(band, torch.Tensor):
-        raise TypeError("band_cholesky: band must be a tensor")
-    if band.dtype != torch.float32:
-        raise TypeError(f"band_cholesky: band must be float32, got {band.dtype}")
-    if band.dim() != 4 or band.shape[1] % 2 != 1 or band.shape[2] != band.shape[3]:
-        raise ValueError(f"band_cholesky: band must be (T, 2hw+1, D, D), got {tuple(band.shape)}")
-    if not band.is_contiguous():
-        raise ValueError("band_cholesky: band must be contiguous")
+def _check_tensor(name, what, x, dim):
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name}: {what} must be a tensor")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: {what} must be float32, got {x.dtype}")
+    if x.dim() != dim:
+        raise ValueError(f"{name}: {what} must have {dim} dimensions, got {tuple(x.shape)}")
+
+
+def _check_contiguous(name, *xs):
+    if not all(x.is_contiguous() for x in xs):
+        raise ValueError(f"{name}: the tensors must be contiguous")
+
+
+def _check_kernel_shape(name, D, hw):
+    if D != KERNEL_D or hw > MAX_HW:
+        raise ValueError(f"{name}: the kernel takes D = {KERNEL_D} and hw <= {MAX_HW}, "
+                         f"got D={D}, hw={hw}")
+
+
+def _check_aligned(name, x):
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel streams rows in 16-byte copies; the tensor must "
+                         f"start on a 16-byte boundary (a view into a larger tensor may not)")
 
 
 @functools.cache
 def _library():
-    fn = _build.load("band_chol.cu").glio_band_chol_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    return fn
+    lib = _build.load("band_chol.cu")
+    size, ptr = ctypes.c_size_t, ctypes.c_void_p
+    lib.glio_band_chol_f32.argtypes = [ptr, size, size, size, ctypes.c_float, ptr, ptr]
+    lib.glio_band_chol_solve_f32.argtypes = [ptr, ptr, size, size, size, ptr, ptr]
+    for fn in (lib.glio_band_chol_f32, lib.glio_band_chol_solve_f32):
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def band_cholesky(band, jitter: float = 0.0):
     """Lb (T, hw + 1, D, D) f32 with Lb[t, m] = L[t][t − m], L Lᵀ = the band
     + jitter·I, as ``block_cholesky`` returns it (a broken block row NaN,
     zeroed below). band: (T, 2hw + 1, D, D) f32, contiguous; on the card
-    D ≤ 8 and hw ≤ 15."""
-    _check(band)
+    D = 6, hw ≤ 15 and band 16-byte aligned."""
+    _check_tensor("band_cholesky", "band", band, 4)
+    if band.shape[1] % 2 != 1 or band.shape[2] != band.shape[3]:
+        raise ValueError(f"band_cholesky: band must be (T, 2hw+1, D, D), got {tuple(band.shape)}")
+    _check_contiguous("band_cholesky", band)
     if not band.is_cuda:
         if band.device.type == "cpu":
             return block_cholesky(band, jitter=jitter)
         raise ValueError(f"band_cholesky: no kernel for device {band.device}")
     T, Bw, D, _ = band.shape
     hw = (Bw - 1) // 2
-    if D > MAX_D or hw > MAX_HW:
-        raise ValueError(f"band_cholesky: the kernel takes D <= {MAX_D} and hw <= {MAX_HW}, "
-                         f"got D={D}, hw={hw}")
+    _check_kernel_shape("band_cholesky", D, hw)
+    _check_aligned("band_cholesky", band)
     out = torch.empty((T, hw + 1, D, D), dtype=torch.float32, device=band.device)
-    _launch.launch("band_cholesky", _library(), band.get_device(), band.data_ptr(), T, hw, D,
-                   float(jitter), out.data_ptr())
+    _launch.launch("band_cholesky", _library().glio_band_chol_f32, band.get_device(),
+                   band.data_ptr(), T, hw, D, float(jitter), out.data_ptr())
     band_cholesky.launches += 1
     return out
 
 
 band_cholesky.launches = 0
+
+
+def band_cholesky_solve(Lb, b):
+    """x (T, D) f32 with L Lᵀ x = b, L the factor ``band_cholesky`` returns
+    (Lb: (T, hw + 1, D, D) f32), as ``block_cholesky_solve`` computes it:
+    the forward sweep, then the backward. Lb and b contiguous, on one
+    device; on the card D = 6, hw ≤ 15 and Lb 16-byte aligned."""
+    _check_tensor("band_cholesky_solve", "Lb", Lb, 4)
+    _check_tensor("band_cholesky_solve", "b", b, 2)
+    T, HW1, D, D2 = Lb.shape
+    if D != D2 or tuple(b.shape) != (T, D):
+        raise ValueError(f"band_cholesky_solve: Lb must be (T, hw+1, D, D) and b (T, D), got "
+                         f"{tuple(Lb.shape)} and {tuple(b.shape)}")
+    _check_contiguous("band_cholesky_solve", Lb, b)
+    if b.device != Lb.device:
+        raise ValueError(f"band_cholesky_solve: Lb on {Lb.device}, b on {b.device}")
+    if not Lb.is_cuda:
+        if Lb.device.type == "cpu":
+            return block_cholesky_solve(Lb, b)
+        raise ValueError(f"band_cholesky_solve: no kernel for device {Lb.device}")
+    _check_kernel_shape("band_cholesky_solve", D, HW1 - 1)
+    _check_aligned("band_cholesky_solve", Lb)
+    x = torch.empty((T, D), dtype=torch.float32, device=Lb.device)
+    _launch.launch("band_cholesky_solve", _library().glio_band_chol_solve_f32, Lb.get_device(),
+                   Lb.data_ptr(), b.data_ptr(), T, HW1 - 1, D, x.data_ptr())
+    band_cholesky_solve.launches += 1
+    return x
+
+
+band_cholesky_solve.launches = 0

@@ -13,8 +13,8 @@ TPU f64 is emulated and have no counterpart. The sequential
 plus a few dense rows: loop closure) are here, and ``pcg_chol_solve``, the
 ``chol_pcg`` solver a user selects: CG on the f64 band, preconditioned by
 an equilibrated f32 Cholesky factor (``_equilibrate``,
-``f32_chol_precond``; on the card the CUDA kernel of ``ops/band_chol.py``),
-as in the JAX package.
+``f32_chol_precond``, ``f32_chol_apply``; on the card the CUDA kernels of
+``ops/band_chol.py``), as in the JAX package.
 
 Determinism: ``scatter_add_blocks`` sums duplicate targets one occurrence
 at a time in the order of the updates, as ``.at[].add`` does on the CPU, so
@@ -425,15 +425,10 @@ def _equilibrate(band):
 
 
 class F32CholPrecond(NamedTuple):
-    """M = L Lᵀ ≈ the equilibrated band. ``Lb`` is L by block rows; the
-    apply takes it as its hw·D super-rows: M⁻¹r is y_i = a_i − G_i y_{i−1}
-    (a = L_ii⁻¹ r) forward, then x_i = b_i − H_i x_{i+1} (b = L_ii⁻ᵀ y)
-    backward, in f32."""
+    """M = L Lᵀ ≈ the equilibrated band, with its equilibration: M⁻¹r is
+    ``block_cholesky_solve(Lb, r·s)·s``, in f32."""
     s: torch.Tensor       # (T, D) f64 equilibration
     Lb: torch.Tensor      # (T, hw + 1, D, D) f32, as ``block_cholesky``'s
-    Linv: torch.Tensor    # (N, S, S): L_ii⁻¹
-    G: tuple              # N × (S, S): L_ii⁻¹ L_{i,i−1} (G[0] = 0)
-    H: tuple              # N × (S, S): (L_{i+1,i} L_ii⁻¹)ᵀ (H[N−1] = 0)
 
 
 def f32_chol_precond(band, jitter: float = 3e-4) -> F32CholPrecond:
@@ -443,51 +438,25 @@ def f32_chol_precond(band, jitter: float = 3e-4) -> F32CholPrecond:
     factor taken one hw·D super-row at a time rounds otherwise, and on a
     long stiff chain lands about 4x further from the exact factor). A block
     row whose f32 Schur complement broke down (``block_cholesky`` keeps it
-    to that row) is replaced by the identity, so M stays SPD. The factor is
-    then regrouped into super-rows for ``f32_chol_apply``."""
+    to that row) is replaced by the identity, so M stays SPD."""
     from ..ops.band_chol import band_cholesky   # the kernel's wrapper imports this module
     band_s, s = _equilibrate(band)
     Lb = band_cholesky(band_s.to(torch.float32).contiguous(), jitter=jitter)
     T, HW1, D, _ = Lb.shape
-    hw = HW1 - 1
     eye_row = torch.zeros_like(Lb[0])
     eye_row[0] = torch.eye(D, dtype=Lb.dtype, device=Lb.device)
     bad = ~torch.isfinite(Lb.reshape(T, -1)).all(dim=1)
-    Lb = torch.where(bad[:, None, None, None], eye_row, Lb)
-    # Block row t = i·hw + a holds columns t − hw..t: in the pair of
-    # super-rows (i − 1, i) they start at block column a.
-    N, S = -(-T // hw), hw * D
-    rows = eye_row.expand(N * hw, HW1, D, D).clone()
-    rows[:T] = Lb
-    rows = rows.flip(1).permute(0, 2, 1, 3).reshape(N * hw, D, HW1 * D)
-    pair = torch.zeros((N * hw, D, 2 * S), dtype=Lb.dtype, device=Lb.device)
-    for a in range(hw):
-        pair[a::hw, :, a * D:(a + HW1) * D] = rows[a::hw]
-    pair = pair.reshape(N, S, 2 * S)
-    Lsub, L = pair[..., :S], pair[..., S:]
-    eye = torch.eye(S, dtype=Lb.dtype, device=Lb.device)
-    Linv = torch.linalg.solve_triangular(L, eye.expand(N, S, S), upper=False)
-    G = Linv @ Lsub
-    H = torch.cat([(Lsub[1:] @ Linv[:-1]).mT, torch.zeros_like(eye)[None]])
-    return F32CholPrecond(s, Lb, Linv, G.unbind(0), H.unbind(0))
+    return F32CholPrecond(s, torch.where(bad[:, None, None, None], eye_row, Lb))
 
 
 def f32_chol_apply(M: F32CholPrecond, r):
-    """M⁻¹ r for r (T, D) f64, solved in f32; returns f64."""
-    T, D = r.shape
-    N, S = M.Linv.shape[:2]
-    rs = torch.zeros((N * S // D, D), dtype=torch.float32, device=r.device)
-    rs[:T] = (r * M.s).to(torch.float32)
-    a = (M.Linv @ rs.reshape(N, S, 1))[..., 0].unbind(0)
-    y = [a[0]]
-    for i in range(1, N):
-        y.append(torch.addmv(a[i], M.G[i], y[-1], alpha=-1.0))
-    b = (M.Linv.mT @ torch.stack(y)[..., None])[..., 0].unbind(0)
-    x = [b[N - 1]]
-    for i in range(N - 2, -1, -1):
-        x.append(torch.addmv(b[i], M.H[i], x[-1], alpha=-1.0))
-    out = torch.stack(x[::-1]).reshape(-1, D)[:T]
-    return out.to(r.dtype) * M.s
+    """M⁻¹ r for r (T, D) f64: the two substitution sweeps of
+    ``block_cholesky_solve`` in f32 (on the card the kernel
+    ``ops.band_chol.band_cholesky_solve``), as ``_f32_chol_precond``'s
+    apply; returns f64."""
+    from ..ops.band_chol import band_cholesky_solve
+    z = band_cholesky_solve(M.Lb, (r * M.s).to(torch.float32).contiguous())
+    return z.to(r.dtype) * M.s
 
 
 def pcg_chol_solve(band, b, iters: int = 14, jitter: float = 3e-4):

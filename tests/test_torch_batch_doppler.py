@@ -199,24 +199,30 @@ def _rel(a, ref):
     return np.abs(a - ref).max() / np.abs(ref).max()
 
 
+def _block_row_apply(M, r):
+    """``_f32_chol_precond``'s apply with the port's factor: the f32
+    ``block_cholesky_solve`` of the equilibrated right-hand side."""
+    return (TBand.block_cholesky_solve(M.Lb, (r * M.s).to(torch.float32)).double() * M.s).numpy()
+
+
 def test_f32_chol_precond_matches_jax(stiff_band):
     """``f32_chol_precond`` is ``block_cholesky`` of the equilibrated f32
     band, bit for bit, and within f32 round-off of JAX's factor (5.1e-6 of
-    its largest entry, measured); its super-row apply is that factor's
-    block-row solve (1.9e-6) and JAX's apply (3.3e-6, relative max-norm)
-    within 2e-5. A factor taken one 42 x 42 super-row at a time lies 1.1e-4
+    its largest entry, measured); its apply is that factor's block-row
+    solve in f32, bit for bit, and within 2e-5 of JAX's apply (relative
+    max-norm). A factor taken one 42 x 42 super-row at a time lies 1.1e-4
     from JAX's apply here, and fails."""
     band, b = stiff_band
     Lb_j, bad_j, apply_j = _jax_precond(band)
     assert not bad_j.any()
     M = TBand.f32_chol_precond(band)
     band_s, s = TBand._equilibrate(band)
+    assert torch.equal(M.s, s)
     assert torch.equal(M.Lb, TBand.block_cholesky(band_s.to(torch.float32), jitter=3e-4))
     assert _rel(M.Lb.numpy(), Lb_j) < 2e-5
     r = torch.tensor(np.random.default_rng(0).normal(size=tuple(b.shape)))
     z = TBand.f32_chol_apply(M, r).numpy()
-    z_rows = (TBand.block_cholesky_solve(M.Lb, (r * s).to(torch.float32)).double() * s).numpy()
-    assert _rel(z, z_rows) < 1e-5
+    np.testing.assert_array_equal(z, _block_row_apply(M, r))
     assert _rel(z, apply_j(r.numpy())) < 2e-5
 
 
@@ -256,8 +262,8 @@ def test_block_cholesky_breakdown_stays_in_its_row(stiff_band, dtype):
 
 
 def test_f32_chol_precond_breakdown_matches_jax(stiff_band):
-    """The broken block row becomes the identity, as in JAX, and the apply
-    still matches JAX's."""
+    """The broken block row becomes the identity, as in JAX, and the apply,
+    still the f32 block-row solve bit for bit, matches JAX's."""
     band = _broken(stiff_band[0])
     Lb_j, bad_j, apply_j = _jax_precond(band)
     M = TBand.f32_chol_precond(band)
@@ -266,6 +272,7 @@ def test_f32_chol_precond_breakdown_matches_jax(stiff_band):
     assert _rel(M.Lb.numpy(), Lb_j) < 2e-5
     r = np.random.default_rng(1).normal(size=tuple(stiff_band[1].shape))
     z = TBand.f32_chol_apply(M, torch.tensor(r)).numpy()
+    np.testing.assert_array_equal(z, _block_row_apply(M, torch.tensor(r)))
     assert _rel(z, apply_j(r)) < 2e-5
 
 

@@ -1,10 +1,10 @@
 """The port's CUDA path on the card: the k-NN kernel (single problems and
 batches of keyframe pairs, the loop-closure ICP's 1024 x 25,600 among them)
 and the copy kernel against their plain versions, bit for bit, the f32
-band Cholesky kernel against its plain version and ``chol_pcg``, the probe,
-the replay, the batch stage, batch level 1, stage 3, backend fusion, the
-LOAM features, the LiDAR odometry, SPP and the GNSS window on the card
-against the same code on the CPU.
+band Cholesky factor and solve kernels against their plain versions and
+``chol_pcg``, the probe, the replay, the batch stage, batch level 1, stage
+3, backend fusion, the LOAM features, the LiDAR odometry, SPP and the GNSS
+window on the card against the same code on the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 no jax, so it runs on a machine that has only torch:
@@ -242,11 +242,53 @@ def test_band_cholesky_kernel_matches_plain_version(cuda, broken):
     assert (L_k - L_p)[fin].abs().max() <= 2e-5 * L_p[fin].abs().max()
 
 
+@pytest.mark.parametrize("broken", [False, True], ids=["sound", "identity_row"])
+def test_band_cholesky_solve_kernel_matches_plain_version(cuda, broken):
+    """The f32 solve kernel against ``block_cholesky_solve`` on the card, one
+    launch, with ``chol_pcg``'s factor of the stiff chain (block row 150 the
+    identity where its Cholesky broke down): within 2e-5 of max |x|
+    (chip_smoke.BAND_SOLVE_RTOL)."""
+    band, g = _stiff_band(cuda, broken)
+    M = banded.f32_chol_precond(band)
+    eye_row = torch.zeros_like(M.Lb[0])
+    eye_row[0] = torch.eye(6, device=cuda)
+    assert torch.equal(M.Lb[150], eye_row) == broken
+    rhs = (g * M.s).to(torch.float32)
+    before = band_chol.band_cholesky_solve.launches
+    x_k = band_chol.band_cholesky_solve(M.Lb, rhs)
+    assert band_chol.band_cholesky_solve.launches == before + 1
+    x_p = banded.block_cholesky_solve(M.Lb, rhs)
+    assert bool(torch.isfinite(x_k).all())
+    assert (x_k - x_p).abs().max() <= 2e-5 * x_p.abs().max()
+
+
+def test_band_kernels_refuse_unaligned_views(cuda):
+    """A band or factor that starts 4 bytes into its buffer: the kernels
+    stream rows in 16-byte copies, so the wrappers raise, launching
+    nothing."""
+    band, g = _stiff_band(cuda)
+    band_s = banded._equilibrate(band)[0].to(torch.float32).contiguous()
+    M = banded.f32_chol_precond(band)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+        view = buf[1:].view(x.shape)
+        view.copy_(x)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        return view
+    before = band_chol.band_cholesky.launches, band_chol.band_cholesky_solve.launches
+    with pytest.raises(ValueError):
+        band_chol.band_cholesky(shifted(band_s), 3e-4)
+    with pytest.raises(ValueError):
+        band_chol.band_cholesky_solve(shifted(M.Lb), (g * M.s).to(torch.float32))
+    assert (band_chol.band_cholesky.launches, band_chol.band_cholesky_solve.launches) == before
+
+
 def test_chol_pcg_on_card_matches_cpu(cuda):
-    """``pcg_chol_solve`` on the stiff chain, card (the kernel's factor)
-    against CPU (``block_cholesky``): 14 iterations stop 2.8e-4 of |x| short
-    of the exact step (CPU), so each side's f32 rounding shows; they agree
-    within 1e-5 of |x|."""
+    """``pcg_chol_solve`` on the stiff chain, card (the kernels' factor and
+    solves) against CPU (``block_cholesky``, ``block_cholesky_solve``): 14
+    iterations stop 2.8e-4 of |x| short of the exact step (CPU), so each
+    side's f32 rounding shows; they agree within 1e-5 of |x|."""
     x = [banded.pcg_chol_solve(*_stiff_band(dev)).cpu() for dev in (cuda, "cpu")]
     assert (x[0] - x[1]).abs().max() <= 1e-5 * x[1].abs().max()
 
