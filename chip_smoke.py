@@ -208,6 +208,7 @@ from glio_tpu_torch import testing
 from glio_tpu_torch.eval import pointcloud
 from glio_tpu_torch.gnss import converter as gnss_converter
 from glio_tpu_torch.gnss import native as gnss_native
+from glio_tpu_torch.gnss import rtk as gnss_rtk
 from glio_tpu_torch.gnss import spp as gnss_spp
 from glio_tpu_torch.gnss import tools as gnss_tools
 from glio_tpu_torch.lidar import neighbors
@@ -240,6 +241,10 @@ FRONTEND_FIXTURE = os.path.join(ROOT, "tests", "data", "frontend_hdl32_seed8.npz
 GNSS_FIXTURE = os.path.join(ROOT, "tests", "data", "gnss_T3493_seed15.npz")
 LONG_RUN_FIXTURE = os.path.join(ROOT, "tests", "data", "long_run_seed3.npz")
 DOPP_WINDOW_FIXTURE = os.path.join(ROOT, "tests", "data", "window_doppler_seed0.npz")
+CARRIER_FIXTURE = os.path.join(ROOT, "tests", "data", "carrier_T3493_seed15.npz")
+VARIANTS_FIXTURE = os.path.join(ROOT, "tests", "data", "batch_variants_T3493_seed4.npz")
+CADENCE_FIXTURE = os.path.join(ROOT, "tests", "data", "batch_variants_cadence_T300_seed4.npz")
+SMS1_SOLVERS_FIXTURE = os.path.join(ROOT, "tests", "data", "batch_variants_sms1_T3493_seed4.npz")
 SPP_TOL_M = 1e-6              # SPP fixes, Doppler velocities (m/s) against JAX's
 GNSS_SUM_RTOL = 1e-12         # checksums of converted epochs and problems (round-off)
 BAND_CHOL_RTOL = 2e-5         # f32 band factor, kernel vs plain, of its largest entry
@@ -630,13 +635,13 @@ def _rmse(p, p_true):
     return float(np.sqrt(np.mean(np.sum((p - p_true) ** 2, -1))))
 
 
-def sms1_scenario(dev):
+def sms1_scenario(dev, fixture=SMS1_FIXTURE):
     """The level-1 fixture's scenario, simulated and built by the port on
     ``dev`` and held to the fixture's checksums: a namespace of the fixture
     ``fx``, its scenario ``sc``, ``cfg``, the episode ``ep``, the odometry
     ``p_odo``, ``q_odo``, the problem ``prob`` and the host seconds
     ``sim_s``, ``build_s``."""
-    fx = np.load(SMS1_FIXTURE)
+    fx = np.load(fixture)
     sc = json.loads(str(fx["scenario_json"]))
     cfg = sms1_config(GlioConfig())
     check(json.loads(str(fx["config_json"])) == json.loads(json.dumps(dataclasses.asdict(cfg))),
@@ -721,7 +726,8 @@ def sms1_against_jax(s, sms, chain, out, dev):
 
 def sms1_phase(dev):
     """Batch level 1 at the Whampoa length on the card, against
-    ``tests/data/sms1_T3493_seed4.npz``. Returns the knn5_pairs_f32 record."""
+    ``tests/data/sms1_T3493_seed4.npz``. Returns the knn5_pairs_f32 record
+    and (scenario, association, IMU chains) for phase 17."""
     s = sms1_scenario(dev)
     fx, sc, cfg, ep, p_odo, q_odo, prob = s.fx, s.sc, s.cfg, s.ep, s.p_odo, s.q_odo, s.prob
     T, R = sc["n_keyframes"], cfg.estimator.search_range
@@ -841,7 +847,8 @@ def sms1_phase(dev):
             "library_call": "torch.topk(torch.cdist(qi, pj), 5, largest=False) over the "
                             "chunk's pairs: yardstick only, GEMM expansion and no masks",
             "shape": f"{len(ci)} pairs of {world.shape[1]} x {world.shape[1]}",
-            "all_pairs": n_pairs, "all_pairs_ms": all_ms, "all_pairs_bound_ms": all_bound}
+            "all_pairs": n_pairs, "all_pairs_ms": all_ms, "all_pairs_bound_ms": all_bound}, (
+        s, sms, chain)
 
 
 def pipeline_phase(dev, level=0):
@@ -1588,20 +1595,27 @@ def band_chol_record(dev, band_s, jitter=3e-4):
         print(f"band_cholesky {rec['shape']}: kernel == plain (the CPU runs the plain version)")
         return rec
     hw = R - 1
-    # Operations this band needs (no FMA: each multiply and add is one): per
-    # block row, the products and triangular solves of its columns j >= 0,
-    # then the diagonal block and its Cholesky.
+    # Operations this band needs (no FMA: each multiply and add is one). Per
+    # block row t, each column j = t - m: the products L[t][k] L[j][k]^T of
+    # the min(hw, t) - m blocks k the two rows share (D^2 dots of D products
+    # and D - 1 sums, each subtracted: 2D^3), then X L[j][j]^T = S by
+    # substitution (D rows of sum_c (2c + 1) = D^2). The diagonal: the lower
+    # triangle of each L[t][k] L[t][k]^T (D(D + 1)/2 entries of 2D), the
+    # jitter (D), and its Cholesky (entry (i, j), i >= j: j products, j
+    # subtractions and a root or a division; sum_j (D - j)(2j + 1)).
+    chol = sum((D - j) * (2 * j + 1) for j in range(D))
     ops = 0
     for t in range(T):
         for m in range(1, min(hw, t) + 1):
-            ops += (hw - m) * (D * D * (2 * D - 1) + D * D) + D * D * D
-        ops += min(hw, t) * (D * D * (2 * D - 1) + D * D) + D * D + D * D * D
+            ops += (min(hw, t) - m) * 2 * D ** 3 + D ** 3
+        ops += min(hw, t) * D * (D + 1) * D + D + chol
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock = gpu_clock_mhz()
     bytes_ = 2 * T * R * D * D * 4      # the band's hw + 1 lower blocks in, the factor out
     ops_ms = ops / (sms * 128 * clock * 1e3)
     bytes_ms = bytes_ / (HBM_GB_S * 1e6)
-    dense = _dense(band_s) + jitter * torch.eye(T * D, dtype=torch.float32, device=dev)
+    dense = _dense(band_s)
+    dense.diagonal().add_(jitter)       # in place: at D = 15 the matrix is 11 GB
     rec.update(ms=time_device_ms(lambda: band_chol_mod.band_cholesky(band_s, jitter), reps=5),
                plain_ms=time_device_ms(lambda: banded.block_cholesky(band_s, jitter=jitter),
                                        reps=1),
@@ -1838,14 +1852,288 @@ def doppler_window_phase(dev):
 
 def gnss_phase(dev):
     """Phase 15, GNSS: RINEX input, SPP, the Doppler batch, the long-run
-    configuration and the Doppler window. Returns the kNN launches of the
-    long run and of the Doppler window, and the band-Cholesky factor and
-    solve kernels' records."""
+    configuration, the Doppler window and the carrier-phase path. Returns the
+    kNN launches of the long run and of the Doppler window, the
+    band-Cholesky factor and solve kernels' records, and the seconds of
+    15.6."""
     fx, drive, g = rinex_phase(dev)
     spp_phase(dev, fx, drive, g)
     chol, solve = gnss_batch_phase(dev, fx, drive, g)
     long_launches, chol["launches_long_run"], solve["launches_long_run"] = long_run_phase(dev)
-    return long_launches, doppler_window_phase(dev), chol, solve
+    dopp_launches = doppler_window_phase(dev)
+    carrier_s, _ = _sync_s(lambda: carrier_phase(dev, drive, g))
+    return long_launches, dopp_launches, chol, solve, carrier_s
+
+
+# --- phase 15.6: the carrier-phase path ----------------------------------------------------
+
+def _launches(fn):
+    """(CUDA kernel launches, result) of one run of ``fn`` under
+    ``torch.profiler``, as ``scripts/profile_torch_batch.py`` counts them
+    (None where no card is present)."""
+    if not torch.cuda.is_available():
+        return None, fn()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events()), out
+
+
+def _rel_spread(a, b):
+    """The largest change of each epoch's entries relative to its largest
+    (``scripts/make_torch_carrier_fixture.py::rel_spread``)."""
+    scale = np.abs(b).reshape(b.shape[0], -1).max(1)
+    return float((np.abs(a - b).reshape(b.shape[0], -1).max(1) / np.maximum(scale, 1e-300))
+                 .max())
+
+
+def carrier_phase(dev, drive, g):
+    """15.6: the float/AR variant of stage 3 on phase 15.1's epochs through
+    ``pipeline.lc_stage_float_ar``: the carrier-phase float filter on the
+    card, integer ambiguity resolution on the host and the LC solve at
+    T = 3493, against ``tests/data/carrier_T3493_seed15.npz``; then the
+    filter once more under ``torch.profiler`` for its launches."""
+    fx = np.load(CARRIER_FIXTURE)
+    sc = json.loads(str(fx["scenario_json"]))
+    cfg = GlioConfig()
+    check(json.loads(str(fx["config_json"])) == json.loads(json.dumps(dataclasses.asdict(cfg)))
+          and {k: sc[k] for k in testing.GNSS_DRIVE} == json.loads(json.dumps(
+              testing.GNSS_DRIVE)) and (sc["cov_gate"], sc["max_dt"]) == (5.0, 0.25),
+          "the carrier fixture was made for another scenario")
+    kf_time, p_true, q_true, p_odo, _, rover = drive
+    anchor = np.asarray(cfg.initialization.anc_ecef)
+    station = np.asarray(cfg.initialization.station_ecef)
+    x0 = fx["x0"]
+    tm = {}
+    p_lc, q_lc, flt, (gnss_p, gnss_valid, _), fixed = pipeline.lc_stage_float_ar(
+        g, kf_time, p_odo, q_true, anchor, 0.0, station, device=dev, x0=x0, timings=tm)
+    filter_s, ar_s, lc_s = tm["filter"], tm["ar"], tm["lc"]
+    n_launch, _ = _launches(lambda: gnss_rtk.run_float_filter(g, station, x0, device=dev))
+    host = pipeline._to_host(flt)
+    E = host.pos.shape[0]
+    for name in ("ok", "n_dd", "n_car"):
+        check(np.array_equal(getattr(host, name), fx[name]), f"float filter {name} differs "
+                                                              f"from JAX's")
+    check(np.array_equal(gnss_valid, fx["gnss_valid"]), "the gated LC factors differ from JAX's")
+    # Each within 10x JAX's own spread under a +-1e-9 m nudge of x0 and a
+    # +-1e-8 m pseudorange nudge of alternating sign (the covariances
+    # relative to their epoch's largest entry).
+    report = []
+    sub = fx["sub"]
+    for name, got, want, key, rel in (
+            ("pos", host.pos, fx["pos"], "nudge_pos", False),
+            ("vel", host.vel, fx["vel"], "nudge_vel", False),
+            ("amb", host.amb, fx["amb"], "nudge_amb", False),
+            ("pos_cov", host.pos_cov, fx["pos_cov"], "nudge_pos_cov", True),
+            ("amb_cov", host.amb_cov[sub], fx["amb_cov_sub"], "nudge_amb_cov_sub", True),
+            ("pa_cov", host.pa_cov[sub], fx["pa_cov_sub"], "nudge_pa_cov_sub", True),
+            ("fixes", gnss_p, fx["gnss_p"], "nudge_gnss_p", False),
+            ("LC p", p_lc.cpu().numpy(), fx["p_lc"], "nudge_p_lc", False),
+            ("LC q", q_lc.cpu().numpy(), fx["q_lc"], "nudge_q_lc", False)):
+        d = _rel_spread(got, want) if rel else float(np.abs(got - want).max())
+        tol = 10.0 * float(fx[key])
+        check(bool(np.isfinite(got).all()), f"carrier phase: {name} not finite")
+        check(d <= tol, f"carrier phase: {name} differs from JAX's by {d} (tol {tol})")
+        report.append(f"{name} {d:.3e} (tol {tol:.3e})")
+    stable = fx["fixed_stable"]
+    check(np.array_equal(fixed[stable], fx["fixed"][stable]),
+          "AR fixed flags differ from JAX's where JAX's own are stable")
+    moved = int((fixed[~stable] != fx["fixed"][~stable]).sum())
+    print(f"carrier phase ({E} epochs, {int(host.n_car.sum())} carrier DD rows): float filter "
+          f"{1e3 * filter_s:.1f} ms (synchronized wall clock, {1e3 * filter_s / E:.3f} ms an "
+          f"epoch), {n_launch} kernel launches ({(n_launch or 0) / E:.0f} an epoch, "
+          f"torch.profiler); AR {ar_s:.2f} s (host, one copy of the filter's output): "
+          f"{int(fixed.sum())} of {E} epochs fixed ({100 * fixed.mean():.1f} %), flags equal to "
+          f"JAX's at all {int(stable.sum())} where JAX's own are stable ({moved} of the other "
+          f"{int((~stable).sum())} differ); LC solve T={p_odo.shape[0]} {1e3 * lc_s:.1f} ms, "
+          f"{int(gnss_valid.sum())} fixes")
+    print("carrier phase vs JAX (max |d|; covariances relative to their epoch's largest "
+          "entry; tol 10x JAX's own spread under a +-1e-9 m x0 and a +-1e-8 m pseudorange "
+          "nudge): " + ", ".join(report) + f"; ok, n_dd, n_car and the gated factors equal; "
+          f"RMSE vs truth float {_rmse(host.pos[host.ok], rover[host.ok]):.3f} m, LC "
+          f"{_rmse(p_lc, p_true):.3f} m (odometry {_rmse(p_odo, p_true):.3f} m)")
+
+
+# --- phase 16: the batch variants -----------------------------------------------------
+
+def _held(name, got, fx, key, extra=()):
+    """max |got - fx[key]| within 10x the largest of JAX's spreads ``extra``
+    (fixture keys); returns the report."""
+    d = float(np.abs(got.cpu().numpy() - fx[key]).max())
+    tol = 10.0 * max(float(fx[k]) for k in extra)
+    check(bool(torch.isfinite(got).all()), f"{name} not finite")
+    check(d <= tol, f"{name}: max |d| from JAX {d} > {tol}")
+    return f"{name} {d:.3e} (tol {tol:.3e})"
+
+
+def batch_variants_phase(dev):
+    """16: on phase 6's drive at T = 3493, ``optimize_batch_atm`` (direct,
+    then ``chol_pcg`` through the D = 7 kernels) and
+    ``optimize_batch_incremental`` (every 250, relatives re-derived); on
+    that drive cut to its first 300 keyframes, the reference cadence (a
+    fresh solve every 10); each against JAX f64. Returns the D = 7 kernels'
+    records."""
+    fx0, sc, cfg, prob, p_true, p_odo, _ = batch_problem(dev)
+    fx = np.load(VARIANTS_FIXTURE)
+    vs = json.loads(str(fx["scenario_json"]))
+    check(json.loads(str(fx["config_json"])) == json.loads(json.dumps(dataclasses.asdict(cfg))),
+          "the batch-variants fixture was made with another configuration")
+    robust = batch_mod.RobustOpts(dd_huber=sc["dd_huber"], epoch_gate=sc["epoch_gate"],
+                                  rel_huber=sc["rel_huber"])
+    thresholds = tuple(vs["thresholds"])
+    T = prob.p_odo.shape[0]
+    n_iter = len(thresholds) * vs["atm_lm_iters"]
+
+    def atm(solver):
+        return batch_mod.optimize_batch_atm(cfg, prob, thresholds=thresholds,
+                                            lm_iters=vs["atm_lm_iters"], solver=solver,
+                                            robust=robust)
+    direct_s, (p, q, z, _) = _sync_s(lambda: atm("direct"))
+    rep = [_held(n, a, fx, f"atm_{n}", [f"atm_nudge_d{n}"]) for n, a in zip("pqz", (p, q, z))]
+    z_range = (float(z.min()), float(z.max()))
+    band_chol_mod.band_cholesky.launches = band_chol_mod.band_cholesky_solve.launches = 0
+    cp_s, (p, q, z, _) = _sync_s(lambda: atm("chol_pcg"))
+    n_chol = band_chol_mod.band_cholesky.launches
+    n_solve = band_chol_mod.band_cholesky_solve.launches
+    check(dev.type != "cuda" or (n_chol == n_iter and n_solve == CHOL_PCG_APPLIES * n_iter),
+          f"atm chol_pcg launched band_cholesky {n_chol} and band_cholesky_solve {n_solve} "
+          f"times in {n_iter} LM iterations")
+    rep += [_held(f"{n} (chol_pcg)", a, fx, f"atm_cp_{n}",
+                  [f"atm_cp_nudge_d{n}", f"atm_cp_f32_nudge_d{n}"])
+            for n, a in zip("pqz", (p, q, z))]
+    print(f"batch atm T={T} (7-dof: pose + zenith bias, 4 stages x {vs['atm_lm_iters']} LM "
+          f"iterations, bench robust options): direct {direct_s:.3f} s, chol_pcg {cp_s:.3f} s "
+          f"(band_cholesky {n_chol} launches, band_cholesky_solve {n_solve}, D = 7); z from "
+          f"{z_range[0]:.3f} to {z_range[1]:.3f} m (direct); RMSE vs truth {_rmse(p, p_true):.4f} "
+          f"m (chol_pcg)")
+    print("batch atm vs JAX f64 (tol 10x JAX's own spread under a +-1e-9 m odometry nudge, "
+          "for chol_pcg also under a 1-ulp rescaling of its preconditioner): " + ", ".join(rep))
+    # The D = 7 kernels on the atm solve's own first band.
+    hw = cfg.estimator.search_range + 1
+    z0 = torch.zeros(T, dtype=torch.float64, device=dev)
+    band, grad, *_ = batch_mod._atm_system(cfg, prob, prob.p_odo, prob.q_odo, z0, thresholds[0],
+                                           hw, robust, batch_mod.assembly_plan(prob, hw))
+    batch_mod._damp(band, torch.tensor(1e-4, dtype=torch.float64, device=dev), hw)
+    rec = band_chol_record(dev, banded._equilibrate(band)[0].to(torch.float32).contiguous())
+    M = banded.f32_chol_precond(band)
+    solve_rec = band_chol_solve_record(dev, M.Lb, (-grad * M.s).to(torch.float32))
+    rec["launches"], solve_rec["launches"] = n_chol, n_solve
+    del band, grad, M
+
+    timings = {}
+    incr_s, (p, q) = _sync_s(lambda: batch_mod.optimize_batch_incremental(
+        cfg, prob, prob.kf_time.cpu().numpy(), every=vs["incr_every"], thresholds=thresholds,
+        lm_iters=vs["incr_lm_iters"], robust=robust, rederive=True, timings=timings))
+    rs = np.asarray(timings["resolve_s"])
+    rep = [_held(n, a, fx, f"incr_{n}", [f"incr_nudge_d{n}"]) for n, a in zip("pq", (p, q))]
+    print(f"batch incremental T={T}, every {vs['incr_every']}, relatives re-derived, 4 stages x "
+          f"{vs['incr_lm_iters']} LM iterations: {incr_s:.2f} s, {len(rs)} re-solves, mean "
+          f"{rs.mean():.3f} s, max {rs.max():.3f} s (synchronized wall clock); vs JAX f64: "
+          + ", ".join(rep) + f"; RMSE vs truth {_rmse(p, p_true):.4f} m")
+
+    fxc = np.load(CADENCE_FIXTURE)
+    Tc = vs["cadence_keyframes"]
+    kf_time, _, q_true, _ = drifted_trajectory(sc["n_keyframes"], sc["max_drift"])
+    anchor = np.asarray(cfg.initialization.anc_ecef)
+    station = np.asarray(cfg.initialization.station_ecef)
+    gnss_c = simulate_gnss_epochs(p_true[:Tc], kf_time[:Tc], anchor, station,
+                                  psr_noise=sc["psr_noise"], epoch_stride=sc["epoch_stride"],
+                                  seed=sc["seed"])
+    prob_c = batch_mod.build_problem(cfg, p_odo[:Tc], q_true[:Tc], kf_time[:Tc], gnss_c, anchor,
+                                     0.0, station, device=dev)
+    cad_s, (p, q, stats) = _sync_s(lambda: batch_mod.optimize_batch_reference_cadence(
+        cfg, prob_c, every=vs["cadence_every"], thresholds=thresholds, robust=robust))
+    check(stats["n_resolves"] == int(fxc["n_resolves"]),
+          f"cadence: {stats['n_resolves']} re-solves, JAX {int(fxc['n_resolves'])}")
+    p1, q1, _ = batch_mod.optimize_batch(cfg, prob_c, thresholds=thresholds,
+                                         lm_iters=(40, 12, 8, 8), robust=robust)
+    check(torch.equal(p, p1) and torch.equal(q, q1),
+          "the cadence's final solve is not optimize_batch of the whole prefix, bit for bit")
+    rep = [_held(n, a, fxc, n, [f"nudge_d{n}"]) for n, a in zip("pq", (p, q))]
+    print(f"batch reference cadence on the drive cut to T={Tc} (of {T}: {stats['n_resolves']} "
+          f"re-solves here, {len(range(30, T, vs['cadence_every']))} at full length), every "
+          f"{vs['cadence_every']}: {cad_s:.2f} s; re-solves mean {stats['resolve_mean_s']:.3f} "
+          f"s, p50 {stats['resolve_p50_s']:.3f} s, max {stats['resolve_max_s']:.3f} s, final "
+          f"{stats['final_s']:.3f} s (synchronized wall clock), equal bit for bit to "
+          f"optimize_batch of the prefix; vs JAX f64: " + ", ".join(rep))
+    return rec, solve_rec
+
+
+# --- phase 17: level 1's iterative solvers --------------------------------------------------
+
+def sms1_solvers_phase(dev, ctx, fixture=SMS1_SOLVERS_FIXTURE):
+    """17: ``optimize_batch_sms1`` and ``optimize_batch_sms1_imu`` with
+    ``pcg`` and ``chol_pcg`` (the latter through the D = 6 and D = 15
+    kernels) at T = 3493 on phase 8's association, against JAX f64 with its
+    plane fits' eigensystem in f64. Returns the D = 15 kernels' records."""
+    s, sms, chain = ctx
+    fx = np.load(fixture)
+    sc, cfg, prob, ep = s.sc, s.cfg, s.prob, s.ep
+    check(json.loads(str(fx["config_json"])) == json.loads(json.dumps(dataclasses.asdict(cfg))),
+          "the level-1 solvers fixture was made with another configuration")
+    check(np.allclose(fx["episode_checksums"], s.fx["episode_checksums"], rtol=1e-12, atol=0),
+          "the level-1 solvers fixture was made on another drive")
+    thresholds = tuple(sc["thresholds"])
+    n_iter = len(thresholds) * sc["lm_iters"]
+    T = prob.p_odo.shape[0]
+    lines, failed, d15 = [], [], None
+    for solve in ("pose", "imu"):
+        for solver in ("pcg", "chol_pcg"):
+            key = f"{solve}_{solver}"
+            band_chol_mod.band_cholesky.launches = band_chol_mod.band_cholesky_solve.launches = 0
+            if solve == "pose":
+                secs, out = _sync_s(lambda: batch_mod.optimize_batch_sms1(
+                    cfg, prob, sms, thresholds=thresholds, lm_iters=sc["lm_iters"],
+                    solver=solver))
+            else:
+                secs, out = _sync_s(lambda: batch_mod.optimize_batch_sms1_imu(
+                    cfg, prob, sms, chain, thresholds=thresholds, lm_iters=sc["lm_iters"],
+                    solver=solver))
+            n_chol = band_chol_mod.band_cholesky.launches
+            n_solve = band_chol_mod.band_cholesky_solve.launches
+            want = (n_iter, CHOL_PCG_APPLIES * n_iter) if solver == "chol_pcg" else (0, 0)
+            check(dev.type != "cuda" or (n_chol, n_solve) == want,
+                  f"level 1 {key}: band kernels launched {(n_chol, n_solve)} times, not {want}")
+            if key == "imu_chol_pcg":
+                d15 = (n_chol, n_solve)
+            # 10x JAX's own spread under a +-1e-9 m nudge of the odometry,
+            # associated and solved again (for chol_pcg also under a 1-ulp
+            # rescaling of its preconditioner), as phase 8 holds the direct solve.
+            names = "pqv" if solve == "imu" else "pq"
+            rep = []
+            # Beside each: how far JAX's result with its own association (f32
+            # eigensystem) lies from the one with the f64 eigensystem.
+            for n, a in zip(names, out):
+                try:
+                    rep.append(_held(n, a, fx, f"{key}_{n}", [f"{key}_nudge_d{n}"] + (
+                        [f"{key}_f32_nudge_d{n}"] if solver == "chol_pcg" else [])))
+                except RuntimeError as err:     # report every solve before failing
+                    failed.append(f"level 1 {key}: {err}")
+                    rep.append(f"{n} FAILED")
+                rep[-1] += f" [JAX f32 eig {float(fx[f'{key}_f32eig_d{n}']):.3e}]"
+            lines.append(f"{solve} {solver}: {secs:.3f} s ({1e3 * secs / n_iter:.1f} ms per LM "
+                         f"iteration), band kernels {n_chol} / {n_solve}; vs JAX: "
+                         + ", ".join(rep) + f"; RMSE vs truth {_rmse(out[0], ep.gt_p):.4f} m")
+    print(f"level-1 iterative solvers T={T}, seed {sc['seed']} (4 stages x {sc['lm_iters']} "
+          f"LM iterations, phase 8's association; tol 10x JAX f64's own spread, its eigensystem "
+          f"in f64; in brackets JAX's own association's distance from that):\n  "
+          + "\n  ".join(lines))
+    check(not failed, "; ".join(failed))
+    # The D = 15 kernels on the 15-dof solve's first band.
+    hw = cfg.estimator.search_range + 1
+    zeros = torch.zeros((T, 3), dtype=torch.float64, device=dev)
+    band, grad = batch_mod._sms1_imu_system(
+        prob.p_odo, prob.q_odo, batch_mod.initial_velocity(prob), zeros, zeros, prob, sms,
+        chain, thresholds[0], hw, batch_mod.assembly_plan(prob, hw),
+        batch_mod.imu_chain_plan(T, hw, dev), batch_mod._imu_params(cfg).gravity_vec(dev))
+    batch_mod._damp(band, torch.tensor(1e-4, dtype=torch.float64, device=dev), hw)
+    rec = band_chol_record(dev, banded._equilibrate(band)[0].to(torch.float32).contiguous())
+    M = banded.f32_chol_precond(band)
+    solve_rec = band_chol_solve_record(dev, M.Lb, (-grad * M.s).to(torch.float32))
+    rec["launches"], solve_rec["launches"] = d15
+    return rec, solve_rec
 
 
 def main():
@@ -1857,7 +2145,7 @@ def main():
     copy_launches = probe_phase()
     batch_phase(dev)
     pipeline_phase(dev)
-    pairs_kern = sms1_phase(dev)
+    pairs_kern, sms1_ctx = sms1_phase(dev)
     pairs_kern["max_abs_err"] = knn_kern.pop("max_abs_err_pairs")
     pipeline_phase(dev, level=1)
     lc_phase(dev)
@@ -1872,7 +2160,16 @@ def main():
     knn_kern["loop_verify"] = loop_rec
     knn_kern["max_abs_err"] = max(knn_kern["max_abs_err"], loop_rec["max_abs_err"],
                                   odo_rec["max_abs_err"], win_rec["max_abs_err"])
-    long_launches, dopp_launches, chol_kern, solve_kern = gnss_phase(dev)
+    long_launches, dopp_launches, chol_kern, solve_kern, carrier_s = gnss_phase(dev)
+    t16 = time.perf_counter()
+    chol7, solve7 = batch_variants_phase(dev)
+    t17 = time.perf_counter()
+    chol15, solve15 = sms1_solvers_phase(dev, sms1_ctx)
+    del sms1_ctx
+    t_end = time.perf_counter()
+    print(f"phases 15.6-17 (carrier phase, batch variants, level-1 solvers): "
+          f"{t_end - t16 + carrier_s:.0f} s ({carrier_s:.0f} + {t17 - t16:.0f} + "
+          f"{t_end - t17:.0f})")
     knn_kern["launches_by_path"] = {"replay": launches, "backend_fusion": fusion_launches,
                                     "loop_closure": loop_launches, "odometry": odo_launches,
                                     "raw_input_replay": raw_launches,
@@ -1892,7 +2189,17 @@ def main():
         {"name": "band_chol_solve_f32", "route": "cuda",
          "source": "glio_tpu_torch/csrc/band_chol.cu", "replaces": "glio_tpu/solver/banded.py:184",
          "replaces_note": "no Pallas kernel: the plain-JAX block_cholesky_solve (two lax.scans) "
-                          "that _f32_chol_precond's apply calls in f32", **solve_kern}]}))
+                          "that _f32_chol_precond's apply calls in f32", **solve_kern},
+        *({"name": f"band_chol_f32_d{D}", "route": "cuda",
+           "source": "glio_tpu_torch/csrc/band_chol.cu", "replaces": "glio_tpu/solver/banded.py:135",
+           "replaces_note": f"no Pallas kernel: block_cholesky in f32 at D = {D} ({what})",
+           **chol} for D, what, chol in ((7, "optimize_batch_atm, chol_pcg", chol7),
+                                         (15, "level 1 with IMU chains, chol_pcg", chol15))),
+        *({"name": f"band_chol_solve_f32_d{D}", "route": "cuda",
+           "source": "glio_tpu_torch/csrc/band_chol.cu", "replaces": "glio_tpu/solver/banded.py:184",
+           "replaces_note": f"no Pallas kernel: block_cholesky_solve in f32 at D = {D} ({what})",
+           **solve} for D, what, solve in ((7, "optimize_batch_atm, chol_pcg", solve7),
+                                           (15, "level 1 with IMU chains, chol_pcg", solve15)))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

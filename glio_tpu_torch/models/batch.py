@@ -1,4 +1,5 @@
-"""Batch (global) fusion, levels 0 and 1 (port of ``glio_tpu/models/batch.py:49-773, 864-1082, 1529-2042``).
+"""Batch (global) fusion, levels 0 and 1 (port of ``glio_tpu/models/batch.py`` but for
+``optimize_batch_sharded``, :780-862).
 
 The stage that writes ``tc_batch_result.csv``: the whole sliding-window
 trajectory is re-solved against the GNSS double differences
@@ -32,9 +33,16 @@ step by CG preconditioned with an f32 banded Cholesky factor
 (``banded.pcg_chol_solve``), as the JAX package's.
 
 Plain f64 otherwise: the JAX package's ``mixed=True`` (f32 whitening and
-Jacobians for the TPU's emulated f64) is not ported. Not ported yet: the
-atmospheric, reference-cadence, incremental and sharded variants, and level
-1's iterative solvers.
+Jacobians for the TPU's emulated f64) is not ported. Level 1 takes the same
+three solvers (``chol_pcg`` factors its 15-dof band).
+
+The variants: ``optimize_batch_atm`` adds a Gauss-Markov zenith-bias chain,
+one more state per keyframe (7×7 blocks); ``optimize_batch_reference_cadence``
+re-solves the growing prefix every 10 keyframes as the reference's
+backendFusionThread does, and ``optimize_batch_incremental`` every ``every``
+keyframes with the relatives re-derived from the corrected trajectory; both
+keep one problem shape and mask the prefix. Not ported yet: the sharded
+variant.
 """
 
 import time
@@ -236,9 +244,13 @@ class RobustOpts(NamedTuple):
 NO_ROBUST = RobustOpts()
 
 
-def _check_supported(cfg, solver: str = "direct"):
+def _check_solver(solver: str):
     if solver not in ("direct", "pcg", "chol_pcg"):
         raise ValueError(f"unknown batch solver {solver!r}")
+
+
+def _check_supported(cfg, solver: str = "direct"):
+    _check_solver(solver)
     if cfg.estimator.doppler_in_batch and cfg.estimator.search_range + 1 < 3:
         # The Doppler rows couple keyframes li−1 .. li+2: 3 block rows apart.
         raise ValueError("doppler_in_batch needs search_range >= 2 (band half-width 3)")
@@ -288,14 +300,18 @@ def _scalar(value, like):
     return torch.tensor(value, dtype=like.dtype, device=like.device)
 
 
-def _dd_row_jac(p, R_el, prob: BatchProblem, threshold, w, robust=None):
+def _dd_row_jac(p, R_el, prob: BatchProblem, threshold, w, robust=None, z=None):
     """Every epoch's whitened DD rows and their ANALYTIC Jacobian w.r.t.
     the interpolated local position (dd_psr_factor.hpp:104-150): the row
     derivative is the whitened line-of-sight difference through R_el.
 
     Returns (res (E, 4M), JP (E, 4M, 3), wf (E, 4M)). With ``robust`` the
     IRLS weights wf are derived here from the freshly whitened rows;
-    otherwise wf = w, reshaped.
+    otherwise wf = w, reshaped. With ``z`` (T,), the zenith biases of the
+    Gauss-Markov chain, each row gains (mf_i − mf_m)·z at the epoch
+    (mf = 1/sin(el): the rover-side atmosphere a synthesized station cannot
+    cancel), and a fourth output, the rows' whitened derivative Jz (E, 4M)
+    w.r.t. that interpolated z.
     """
     left = prob.ep_left
     ratio = prob.ep_ratio[:, None]
@@ -308,21 +324,32 @@ def _dd_row_jac(p, R_el, prob: BatchProblem, threshold, w, robust=None):
     sd_est = rho_u - rho_r
     sd_meas = prob.psr_rov - prob.psr_sta
     idx = torch.arange(sd_est.shape[1], device=p.device)
-    res_parts, jac_parts = [], []
+    if z is not None:
+        z_interp = ratio * z[left][:, None] + (1.0 - ratio) * z[left + 1][:, None]
+        mf = 1.0 / torch.clamp(torch.sin(prob.elevation), min=0.05)
+    res_parts, jac_parts, jz_parts = [], [], []
     for s in range(prob.master.shape[1]):
         mp = prob.master[:, s:s + 1]
         mp_s = torch.clamp(mp, min=0)
         dd = ((sd_est - sd_est.gather(1, mp_s))
               - (sd_meas - sd_meas.gather(1, mp_s)))
         m = prob.sv_valid & (prob.system == s) & (idx != mp_s) & (mp >= 0)
+        if z is not None:
+            mf_diff = torch.where(m, mf - mf.gather(1, mp_s), torch.zeros_like(mf))
+            dd = dd + mf_diff * z_interp
         r = torch.where(m, dd, torch.zeros_like(dd))
         wth = torch.where(torch.abs(r) > threshold, _scalar(0.05, r), _scalar(1.0, r))
         r = r * wth
         los_m = los.gather(1, mp_s[..., None].expand(-1, 1, 3))
         JrowP = (los_m - los) * (m * wth)[..., None]
-        out = prob.whiten[:, s] @ torch.cat([r[..., None], JrowP], -1)  # (E, M, 4)
+        cols = [r[..., None], JrowP]
+        if z is not None:
+            cols.append((mf_diff * wth)[..., None])
+        out = prob.whiten[:, s] @ torch.cat(cols, -1)    # (E, M, 4), or 5 with z
         res_parts.append(out[..., 0])
         jac_parts.append(out[..., 1:4])
+        if z is not None:
+            jz_parts.append(out[..., 4])
     res = torch.cat(res_parts, dim=1)
     JP_ecef = torch.cat(jac_parts, dim=1)
     valid = prob.ep_valid[:, None]
@@ -345,6 +372,9 @@ def _dd_row_jac(p, R_el, prob: BatchProblem, threshold, w, robust=None):
     res = torch.where(valid, res * wf, torch.zeros_like(res))
     JP = (JP_ecef * wf[..., None]) @ R_el
     JP = torch.where(valid[..., None], JP, torch.zeros_like(JP))
+    if z is not None:
+        Jz = torch.cat(jz_parts, dim=1) * wf
+        return res, JP, wf, torch.where(valid, Jz, torch.zeros_like(Jz))
     return res, JP, wf
 
 
@@ -498,16 +528,18 @@ def _scatter_pair(band, grad, Ji, Jj, res, plans):
 
 def _assemble_core_impl(p, q, prob: BatchProblem, threshold, hw: int,
                         w_rel=None, w_dd=None, robust: RobustOpts = None,
-                        plan: AssemblyPlan = None, use_doppler: bool = False):
+                        plan: AssemblyPlan = None, use_doppler: bool = False, z=None):
     """Band and gradient by analytic per-factor Jacobians, plus the cost at
     (p, q) and the IRLS weights used.
 
-    Returns (band (T, 2hw+1, 6, 6), grad (T, 6), cost, w_rel, w_dd). With
-    ``robust`` the weights are derived from the rows at (p, q); otherwise
-    ``w_rel`` / ``w_dd`` (default ones) are applied.
+    Returns (band (T, 2hw+1, D, D), grad (T, D), cost, w_rel, w_dd), D = 6;
+    with ``z`` (T,), the zenith biases of ``optimize_batch_atm``, D = 7 and
+    the DD rows carry their z column (the Gauss-Markov rows are the
+    caller's). With ``robust`` the weights are derived from the rows at (p,
+    q); otherwise ``w_rel`` / ``w_dd`` (default ones) are applied.
     """
     T = p.shape[0]
-    D = POSE_DOF
+    D = POSE_DOF + (z is not None)
     dev = p.device
     if plan is None or (use_doppler and plan.dopp is None):
         plan = assembly_plan(prob, hw, use_doppler)
@@ -568,7 +600,7 @@ def _assemble_core_impl(p, q, prob: BatchProblem, threshold, hw: int,
         _scatter_pair(band, grad, Ji * mw, Jj * mw, res, plans)
     w_rel_all = torch.stack(w_rel_out, dim=1) if derive_w and w_rel_out else w_rel
 
-    res, w_dd_rows = _scatter_dd(band, grad, p, prob, threshold, w_dd, robust, plan.dd)
+    res, w_dd_rows = _scatter_dd(band, grad, p, prob, threshold, w_dd, robust, plan.dd, z)
     cost = cost + 0.5 * torch.sum(res * res)
     w_dd_all = w_dd_rows.reshape(w_dd.shape) if derive_w else w_dd
     if use_doppler:
@@ -592,18 +624,22 @@ def _scatter_dopp(band, grad, p, prob: BatchProblem, plans):
     return 0.5 * torch.sum(res * res)
 
 
-def _scatter_dd(band, grad, p, prob: BatchProblem, threshold, w_dd, robust, plans):
-    """The DD factors, pairs (k, k+1), positions only, into the pose
-    corner of (band, grad); returns their rows and IRLS weights."""
+def _scatter_dd(band, grad, p, prob: BatchProblem, threshold, w_dd, robust, plans, z=None):
+    """The DD factors, pairs (k, k+1), positions (and with ``z`` the zenith
+    bias, the seventh state) only, into (band, grad); returns their rows and
+    IRLS weights."""
     D = band.shape[-1]
     R_el = r_ecef_local(prob.anchor_ecef, prob.yaw_enu_local)
-    res, JP, w_dd_rows = _dd_row_jac(p, R_el, prob, threshold, w_dd, robust)
-    # ∂p_local/∂p_k = ratio·I, ∂/∂p_k+1 = (1 − ratio)·I.
+    res, JP, w_dd_rows, *Jz = _dd_row_jac(p, R_el, prob, threshold, w_dd, robust, z)
+    # ∂p_local/∂p_k = ratio·I, ∂/∂p_k+1 = (1 − ratio)·I; z likewise.
     ratio = prob.ep_ratio[:, None, None]
     Ji = torch.zeros(res.shape + (D,), dtype=F64, device=p.device)
     Ji[..., :3] = JP * ratio
     Jj = torch.zeros_like(Ji)
     Jj[..., :3] = JP * (1.0 - ratio)
+    if z is not None:
+        Ji[..., POSE_DOF] = Jz[0] * ratio[..., 0]
+        Jj[..., POSE_DOF] = Jz[0] * (1.0 - ratio[..., 0])
     _scatter_pair(band, grad, Ji, Jj, res, plans)
     return res, w_dd_rows
 
@@ -624,6 +660,18 @@ def _damp(band, lam, hw: int):
     diag = band[:, hw]
     band[:, hw] = diag + lam * (
         eye * torch.clamp(torch.diagonal(diag, dim1=-2, dim2=-1), min=1.0)[..., None, :] * eye)
+
+
+def _solve_step(band, grad, solver: str, pcg_iters: int = 200):
+    """The step of an LM iteration: exact by cyclic reduction ("direct"), by
+    CG preconditioned with the f32 band factor ("chol_pcg"), or by
+    ``pcg_iters`` of block-Jacobi PCG ("pcg"; level 0 takes 60 by default,
+    the level-1 and zenith-bias solves 200, as the JAX package's)."""
+    if solver == "direct":
+        return banded.cyclic_reduction_solve(band, -grad)
+    if solver == "chol_pcg":
+        return banded.pcg_chol_solve(band, -grad)
+    return banded.pcg_solve(band, -grad, iters=pcg_iters)[0]
 
 
 def solve_batch_once(cfg, prob: BatchProblem, p0, q0, threshold,
@@ -651,13 +699,7 @@ def solve_batch_once(cfg, prob: BatchProblem, p0, q0, threshold,
         band, grad, cost_cur, w_rel, w_dd = _assemble_core_impl(
             p, q, prob, threshold, hw, robust=robust, plan=plan, use_doppler=use_doppler)
         _damp(band, lam, hw)
-        if solver == "direct":
-            dx = banded.cyclic_reduction_solve(band, -grad)
-        elif solver == "chol_pcg":
-            dx = banded.pcg_chol_solve(band, -grad)
-        else:
-            dx, _ = banded.pcg_solve(band, -grad, iters=pcg_iters)
-        p_new, q_new = _retract(p, q, dx.reshape(-1))
+        p_new, q_new = _retract(p, q, _solve_step(band, grad, solver, pcg_iters).reshape(-1))
         new_cost = _total_cost(p_new, q_new, prob, threshold, w_rel, w_dd, use_doppler)
         better = new_cost < cost_cur
         p = torch.where(better, p_new, p)
@@ -668,14 +710,18 @@ def solve_batch_once(cfg, prob: BatchProblem, p0, q0, threshold,
 
 def optimize_batch(cfg, prob: BatchProblem, thresholds=(1e9, 10.0, 8.0, 6.0),
                    lm_iters=10, pcg_iters: int = 60, solver: str = "direct",
-                   robust: RobustOpts = NO_ROBUST, init=None):
+                   robust: RobustOpts = NO_ROBUST, init=None, plan: AssemblyPlan = None):
     """The annealed batch solve (Estimator.cpp:2764-2767), one stage per
     threshold. ``lm_iters``: one count, or one per stage. ``init``: an
-    optional (p0, q0) warm start in place of the odometry. Returns
-    (p, q, per-stage costs); the cost is read to the host once per stage.
+    optional (p0, q0) warm start in place of the odometry. ``plan``: the
+    problem's ``assembly_plan``, when the caller has it (it depends on the
+    epochs' binding only). Returns (p, q, per-stage costs); the cost is read
+    to the host once per stage.
     """
     _check_supported(cfg, solver)
-    plan = assembly_plan(prob, cfg.estimator.search_range + 1, cfg.estimator.doppler_in_batch)
+    if plan is None:
+        plan = assembly_plan(prob, cfg.estimator.search_range + 1,
+                             cfg.estimator.doppler_in_batch)
     p, q = (prob.p_odo, prob.q_odo) if init is None else init
     if isinstance(lm_iters, int):
         lm_iters = (lm_iters,) * len(thresholds)
@@ -803,6 +849,331 @@ def calibrate_batch_covariance(cfg, prob: BatchProblem, p, q, cov,
     return torch.as_tensor(cov, device=p.device), report
 
 
+# --- the Gauss-Markov zenith-bias chain (optimize_batch_atm) ------------------------
+#
+# A synthesized base station cancels none of the rover's atmosphere, so every
+# DD row carries (mf_i − mf_m)·z, z the rover's zenith bias, mf = 1/sin(el).
+# z is one more state per keyframe, tied along the chain by a first-order
+# Gauss-Markov process and weakly to zero: the system stays banded, with 7×7
+# blocks, and every solver applies.
+
+def _gm_chain(z, kf_time, tau, sigma, sigma_abs):
+    """Gauss-Markov whitened prior rows on the z chain:
+    r_gm[k] = (z_{k+1} − φ_k z_k)/σ_w,k, φ_k = exp(−Δt_k/τ),
+    σ_w,k = σ·√(1−φ_k²) (stationary-variance discretization), and the weak
+    absolute rows z_k/σ_abs that fix the gauge. Returns (r_gm, r_abs, φ,
+    σ_w)."""
+    dt = torch.clamp(torch.diff(kf_time), min=1e-3)
+    phi = torch.exp(-dt / tau)
+    sig_w = sigma * torch.sqrt(torch.clamp(1.0 - phi ** 2, min=1e-8))
+    r_gm = (z[1:] - phi * z[:-1]) / sig_w
+    return r_gm, z / sigma_abs, phi, sig_w
+
+
+def _atm_system(cfg, prob: BatchProblem, p, q, z, threshold, hw: int, robust, plan):
+    """The 7-dof band and gradient at (p, q, z), with the cost there and the
+    IRLS weights: ``_assemble_core_impl``'s rows with their z column, plus
+    the Gauss-Markov rows, which couple (k, k+1) at the z index, and the
+    absolute rows on z."""
+    est = cfg.estimator
+    band, grad, cost, w_rel, w_dd = _assemble_core_impl(p, q, prob, threshold, hw,
+                                                        robust=robust, plan=plan, z=z)
+    r_gm, r_abs, phi, sig_w = _gm_chain(z, prob.kf_time, est.atm_tau, est.atm_sigma,
+                                        est.atm_abs_sigma)
+    cost = cost + 0.5 * (torch.sum(r_gm ** 2) + torch.sum(r_abs ** 2))
+    zi = POSE_DOF
+    a_k = -phi / sig_w          # ∂r_gm[k]/∂z_k
+    b_k = 1.0 / sig_w           # ∂r_gm[k]/∂z_{k+1}
+    band[:-1, hw, zi, zi] += a_k * a_k
+    band[:-1, hw + 1, zi, zi] += a_k * b_k
+    band[1:, hw - 1, zi, zi] += a_k * b_k
+    band[1:, hw, zi, zi] += b_k * b_k
+    grad[:-1, zi] += a_k * r_gm
+    grad[1:, zi] += b_k * r_gm
+    band[:, hw, zi, zi] += 1.0 / est.atm_abs_sigma ** 2
+    grad[:, zi] += r_abs / est.atm_abs_sigma
+    return band, grad, cost, w_rel, w_dd
+
+
+def solve_batch_once_atm(cfg, prob: BatchProblem, p0, q0, z0, threshold, lm_iters: int = 10,
+                         solver: str = "direct", robust: RobustOpts = NO_ROBUST,
+                         plan: AssemblyPlan = None):
+    """One annealing stage of the 7-dof (pose + zenith bias) batch: the
+    level-0 stage with the z column on the DD rows and the Gauss-Markov
+    rows on z, no host sync. Returns (p, q, z, unweighted cost) tensors."""
+    _check_solver(solver)
+    est = cfg.estimator
+    hw = est.search_range + 1
+    tau, sigma, sigma_abs = est.atm_tau, est.atm_sigma, est.atm_abs_sigma
+    if plan is None:
+        plan = assembly_plan(prob, hw)
+    R_el = r_ecef_local(prob.anchor_ecef, prob.yaw_enu_local)
+    zi = POSE_DOF
+
+    def gm_cost(z):
+        r_gm, r_abs, _, _ = _gm_chain(z, prob.kf_time, tau, sigma, sigma_abs)
+        return 0.5 * (torch.sum(r_gm ** 2) + torch.sum(r_abs ** 2))
+
+    def trial_cost(p, q, z, w_rel, w_dd):
+        r1 = _rel_residuals(p, q, prob, w_rel)
+        r2 = _dd_row_jac(p, R_el, prob, threshold, w_dd, z=z)[0]
+        return 0.5 * (torch.sum(r1 * r1) + torch.sum(r2 * r2)) + gm_cost(z)
+
+    p, q, z = p0, q0, z0
+    lam = torch.tensor(1e-4, dtype=F64, device=p0.device)
+    for _ in range(lm_iters):
+        band, grad, cost_cur, w_rel, w_dd = _atm_system(cfg, prob, p, q, z, threshold, hw,
+                                                        robust, plan)
+        _damp(band, lam, hw)
+        dx = _solve_step(band, grad, solver)
+        p_new = p + dx[:, :3]
+        q_new = quat.normalize(quat.mul(q, quat.exp(dx[:, 3:6])))
+        z_new = z + dx[:, zi]
+        new_cost = trial_cost(p_new, q_new, z_new, w_rel, w_dd)
+        better = new_cost < cost_cur
+        p = torch.where(better, p_new, p)
+        q = torch.where(better, q_new, q)
+        z = torch.where(better, z_new, z)
+        lam = torch.clamp(torch.where(better, lam * 0.3, lam * 5.0), 1e-9, 1e6)
+    ones_rel = torch.ones(prob.rel_valid.shape, dtype=F64, device=p0.device)
+    ones_dd = torch.ones(prob.ep_valid.shape + prob.master.shape[1:] + prob.sv_valid.shape[1:],
+                         dtype=F64, device=p0.device)
+    return p, q, z, trial_cost(p, q, z, ones_rel, ones_dd)
+
+
+def optimize_batch_atm(cfg, prob: BatchProblem, thresholds=(1e9, 10.0, 8.0, 6.0),
+                       lm_iters=10, solver: str = "direct", robust: RobustOpts = NO_ROBUST):
+    """The annealed batch solve with the Gauss-Markov zenith-bias chain, one
+    stage per threshold, z starting at zero. Returns (p, q, z, per-stage
+    costs); the cost is read to the host once per stage."""
+    if cfg.estimator.doppler_in_batch:
+        raise ValueError(
+            "optimize_batch_atm does not support doppler_in_batch: the "
+            "7-dof (pose+zenith) assembly has no Doppler rows — use "
+            "optimize_batch, or extend _assemble_core's z-path first "
+            "(silently dropping the factors would confound atm A/Bs).")
+    _check_solver(solver)
+    plan = assembly_plan(prob, cfg.estimator.search_range + 1)
+    p, q = prob.p_odo, prob.q_odo
+    z = torch.zeros(p.shape[0], dtype=F64, device=p.device)
+    if isinstance(lm_iters, int):
+        lm_iters = (lm_iters,) * len(thresholds)
+    costs = []
+    for th, iters in zip(thresholds, lm_iters):
+        p, q, z, cost = solve_batch_once_atm(cfg, prob, p, q, z, th, iters, solver, robust,
+                                             plan)
+        costs.append(float(cost))
+    return p, q, z, costs
+
+
+# --- the reference's re-solve cadence and the incremental mode --------------------
+
+def derive_relatives(p_odo, q_odo, kf_dt, R: int, max_speed: float = 30.0):
+    """Relative-pose measurements (T, R, 3), (T, R, 4) and their validity
+    (T, R) to the forward neighbours 1..R of a trajectory (tensors). The
+    reference re-derives them from the continuously corrected trajectory at
+    every batch run, which lets later runs heal earlier odometry jumps.
+    Relatives implying more than ``max_speed`` m/s are invalid."""
+    T = p_odo.shape[0]
+    dev = p_odo.device
+    idx = torch.arange(T, device=dev)
+    unit = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=F64, device=dev)
+    dps, dqs, oks = [], [], []
+    for r in range(1, R + 1):
+        qj = torch.roll(q_odo, -r, dims=0)
+        pj = torch.roll(p_odo, -r, dims=0)
+        dq = quat.mul(quat.conj(q_odo), qj)
+        dp = quat.rotate(quat.conj(q_odo), pj - p_odo)
+        ok = idx < T - r
+        speed = torch.linalg.norm(dp, dim=-1) / (r * kf_dt)
+        dps.append(torch.where(ok[:, None], dp, torch.zeros_like(dp)))
+        dqs.append(torch.where(ok[:, None], dq, unit))
+        oks.append(ok & (speed < max_speed))
+    return torch.stack(dps, 1), torch.stack(dqs, 1), torch.stack(oks, 1)
+
+
+def _mask_prefix(rel_valid, ep_valid, ep_left, n: int):
+    """The masks of the active prefix [0, n): relatives whose both ends lie
+    in it, epochs bound to a keyframe pair inside it. One problem shape for
+    every prefix."""
+    T, R = rel_valid.shape
+    idx = torch.arange(T, device=rel_valid.device)
+    offs = torch.arange(1, R + 1, device=rel_valid.device)
+    rel_valid = rel_valid & (idx < n)[:, None] & (idx[:, None] + offs[None, :] < n)
+    return rel_valid, ep_valid & (ep_left + 1 < n)
+
+
+def _prep_prefix(p_cur, q_cur, kf_dt, ep_valid, ep_left, n: int, R: int):
+    """An incremental re-solve's relatives, re-derived from the corrected
+    trajectory, and both masks of the prefix [0, n)."""
+    rel_dp, rel_dq, rel_valid = derive_relatives(p_cur, q_cur, kf_dt, R)
+    return (rel_dp, rel_dq, *_mask_prefix(rel_valid, ep_valid, ep_left, n))
+
+
+def _original_hops(prob: BatchProblem):
+    """The consecutive-keyframe odometry hops (Δp in the older frame, Δq) of
+    the problem's trajectory, numpy, once."""
+    q = prob.q_odo
+    hop_dq = quat.mul(quat.conj(q[:-1]), q[1:]).cpu().numpy()
+    hop_dp = quat.rotate(quat.conj(q[:-1]), prob.p_odo[1:] - prob.p_odo[:-1]).cpu().numpy()
+    return hop_dp, hop_dq
+
+
+def _chain_hops(p_cur, q_cur, hop_dp, hop_dq, lo, hi):
+    """Chain the original odometry hops from pose lo − 1 through [lo, hi),
+    in place in the numpy arrays ``p_cur`` / ``q_cur`` (returned too):
+    host numpy one pose at a time, as in the JAX package."""
+    for k in range(max(lo, 1), hi):
+        qp = q_cur[k - 1]
+        qk = quat.mul_np(qp, hop_dq[k - 1])
+        p_cur[k] = p_cur[k - 1] + quat.rotate_np(qp, hop_dp[k - 1])
+        q_cur[k] = qk / np.linalg.norm(qk)
+    return p_cur, q_cur
+
+
+def _synced_clock(device):
+    """Seconds on the host clock, after the device's queued work is done."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def optimize_batch_reference_cadence(cfg, prob: BatchProblem, every: int = 10,
+                                     lm_iters=4, thresholds=(1e9, 10.0, 8.0, 6.0),
+                                     final_lm_iters=(40, 12, 8, 8), solver: str = "direct",
+                                     robust: RobustOpts = NO_ROBUST, warm_start: bool = False,
+                                     warm_thresholds=(6.0,), warm_lm_iters=4,
+                                     verbose: bool = False):
+    """The reference's backendFusionThread cadence (Estimator.cpp:2740-2751):
+    once 30 keyframes exist, every ``every`` new ones, a fresh annealed
+    batch solve of the prefix from the window's own snapshot, sharing no
+    state with the run before; then the full-trajectory solve at
+    ``final_lm_iters``. ``warm_start`` (beyond the reference) starts each
+    re-solve from the previous solution with the new tail chained in by the
+    original odometry hops, at ``warm_thresholds`` × ``warm_lm_iters``: the
+    constraints are unchanged, and the final solve stays the cold one.
+
+    Returns (p, q, stats) with the per-re-solve wall-clock seconds (the
+    device synchronized before each reading): ``n_resolves``, ``final_s``,
+    ``resolve_mean_s``, ``resolve_p50_s``, ``resolve_max_s``, ``total_s``.
+    """
+    _check_supported(cfg, solver)
+    dev = prob.p_odo.device
+    T = prob.p_odo.shape[0]
+    plan = assembly_plan(prob, cfg.estimator.search_range + 1, cfg.estimator.doppler_in_batch)
+    if warm_start:
+        hop_dp, hop_dq = _original_hops(prob)
+    p_cur = q_cur = None
+    n_prev = 0
+    times = []
+    for n in range(30, T, every):
+        rel_valid, ep_valid = _mask_prefix(prob.rel_valid, prob.ep_valid, prob.ep_left, n)
+        prob_n = prob._replace(rel_valid=rel_valid, ep_valid=ep_valid)
+        t0 = _synced_clock(dev)
+        if warm_start and p_cur is not None:
+            # The hop chaining is host work inside the timed region: it is
+            # part of what replaces the fresh solve.
+            _chain_hops(p_cur, q_cur, hop_dp, hop_dq, n_prev, n)
+            init = (torch.as_tensor(p_cur, device=dev), torch.as_tensor(q_cur, device=dev))
+            p, q, costs = optimize_batch(cfg, prob_n, thresholds=warm_thresholds,
+                                         lm_iters=warm_lm_iters, solver=solver, robust=robust,
+                                         init=init, plan=plan)
+        else:
+            p, q, costs = optimize_batch(cfg, prob_n, thresholds=thresholds, lm_iters=lm_iters,
+                                         solver=solver, robust=robust, plan=plan)
+        times.append(_synced_clock(dev) - t0)
+        if warm_start:
+            if p_cur is None:
+                p_cur, q_cur = p.cpu().numpy().copy(), q.cpu().numpy().copy()
+            else:
+                p_cur[:n] = p[:n].cpu().numpy()
+                q_cur[:n] = q[:n].cpu().numpy()
+            n_prev = n
+        if verbose and (n // every) % 20 == 0:
+            print(f"  batch re-solve n={n}: {times[-1]:.2f} s cost {costs[-1]:.0f}", flush=True)
+    t0 = _synced_clock(dev)
+    p, q, _ = optimize_batch(cfg, prob, thresholds=thresholds, lm_iters=final_lm_iters,
+                             solver=solver, robust=robust, plan=plan)
+    t_final = _synced_clock(dev) - t0
+    times_arr = np.asarray(times) if times else np.zeros(1)
+    stats = {"n_resolves": len(times), "final_s": t_final,
+             "resolve_mean_s": float(times_arr.mean()),
+             "resolve_p50_s": float(np.median(times_arr)),
+             "resolve_max_s": float(times_arr.max()),
+             "total_s": float(times_arr.sum() + t_final)}
+    return p, q, stats
+
+
+def optimize_batch_incremental(cfg, prob: BatchProblem, kf_time, every: int = 50,
+                               thresholds=(1e9, 10.0, 8.0, 6.0), lm_iters=4,
+                               solver: str = "direct", relaxation_passes: int = 0,
+                               robust: RobustOpts = NO_ROBUST, rederive: bool = True,
+                               verbose: bool = False, timings: dict = None):
+    """The reference's incremental batch replay (backendFusionThread,
+    Estimator.cpp:5352, 2740-2748): re-solve the growing prefix every
+    ``every`` keyframes, one problem shape with masks for every prefix. Each
+    incoming chunk is chained onto the corrected boundary by the original
+    odometry hops (host numpy); ``rederive`` (the reference's way) derives
+    the relatives anew from the corrected trajectory at each re-solve.
+    ``relaxation_passes`` then re-derive and re-solve the whole trajectory
+    (2 LM iterations at the last threshold each). ``prob`` supplies the
+    GNSS binding and whitening and the starting odometry. With ``timings``
+    (a dict), each prefix re-solve's wall-clock seconds, the device
+    synchronized before each reading, go to ``timings["resolve_s"]``.
+    Returns (p, q).
+    """
+    _check_supported(cfg, solver)
+    dev = prob.p_odo.device
+    T = prob.p_odo.shape[0]
+    R = prob.rel_valid.shape[1]
+    kf_dt = float(np.median(np.diff(np.asarray(kf_time))))
+    plan = assembly_plan(prob, cfg.estimator.search_range + 1, cfg.estimator.doppler_in_batch)
+    hop_dp, hop_dq = _original_hops(prob)
+    p_cur = prob.p_odo.cpu().numpy().copy()
+    q_cur = prob.q_odo.cpu().numpy().copy()
+    n_prev = 0
+    times = timings.setdefault("resolve_s", []) if timings is not None else []
+    for n in list(range(max(every, 20), T, every)) + [T]:
+        t0 = _synced_clock(dev)
+        _chain_hops(p_cur, q_cur, hop_dp, hop_dq, n_prev, n)
+        n_prev = n
+        p_t = torch.as_tensor(p_cur, device=dev)
+        q_t = torch.as_tensor(q_cur, device=dev)
+        if rederive:
+            rel_dp, rel_dq, rel_valid, ep_valid = _prep_prefix(p_t, q_t, kf_dt, prob.ep_valid,
+                                                               prob.ep_left, n, R)
+        else:
+            rel_valid, ep_valid = _mask_prefix(prob.rel_valid, prob.ep_valid, prob.ep_left, n)
+            rel_dp, rel_dq = prob.rel_dp, prob.rel_dq
+        prob_n = prob._replace(p_odo=p_t, q_odo=q_t, rel_dp=rel_dp, rel_dq=rel_dq,
+                               rel_valid=rel_valid, ep_valid=ep_valid)
+        p_new, q_new, costs = optimize_batch(cfg, prob_n, thresholds=thresholds,
+                                             lm_iters=lm_iters, solver=solver, robust=robust,
+                                             plan=plan)
+        # Poses beyond the prefix keep their values until chained in.
+        p_cur[:n] = p_new[:n].cpu().numpy()
+        q_cur[:n] = q_new[:n].cpu().numpy()
+        times.append(_synced_clock(dev) - t0)
+        if verbose:
+            print(f"  incremental batch n={n}: cost {costs[-1]:.0f}", flush=True)
+    # Each pass re-derives the relatives from the current estimate, one more
+    # equilibrium step toward the GNSS evidence (the reference gets ~T/10 of
+    # them by re-running every 10 keyframes).
+    for it in range(relaxation_passes):
+        p_t = torch.as_tensor(p_cur, device=dev)
+        q_t = torch.as_tensor(q_cur, device=dev)
+        rel_dp, rel_dq, rel_valid = derive_relatives(p_t, q_t, kf_dt, R)
+        prob_n = prob._replace(p_odo=p_t, q_odo=q_t, rel_dp=rel_dp, rel_dq=rel_dq,
+                               rel_valid=rel_valid)
+        p_new, q_new, cost = solve_batch_once(cfg, prob_n, p_t, q_t, thresholds[-1], 2, 60,
+                                              solver, robust, plan)
+        p_cur = p_new.cpu().numpy()
+        q_cur = q_new.cpu().numpy()
+        if verbose and (it % 10 == 9):
+            print(f"  relaxation {it + 1}: cost {float(cost):.0f}", flush=True)
+    return torch.as_tensor(p_cur, device=dev), torch.as_tensor(q_cur, device=dev)
+
+
 # --- level 1: binary scan-to-multiscan planes and IMU chains ----------------------
 #
 # sms_fusion_level=1 (Estimator.cpp:2990-3077): the level-0 relative-pose rows
@@ -918,14 +1289,6 @@ def build_sms1(cfg, scans, scans_valid, p_odo, q_odo, chunk: int = SMS1_CHUNK, *
     return out
 
 
-def _check_level1_solver(solver: str):
-    """Level 1 solves each step exactly by cyclic reduction; the JAX
-    package's iterative alternatives, which no caller selects, are not
-    ported."""
-    if solver != "direct":
-        raise NotImplementedError(f"solver={solver!r} is not ported for level 1")
-
-
 def _att_residuals(p, q, prob: BatchProblem):
     """(T, R, 3) relative-attitude rows: the first three of ``_rel_rows_raw``."""
     rows = []
@@ -1022,9 +1385,10 @@ def _assemble_sms1_pose(p, q, prob: BatchProblem, sms: Sms1Data, threshold, hw: 
 
 
 def _sms1_solve_once(cfg, prob: BatchProblem, sms: Sms1Data, p0, q0, threshold,
-                     lm_iters: int, plan: AssemblyPlan):
+                     lm_iters: int, plan: AssemblyPlan, solver: str = "direct"):
     """One annealing stage of the pose-only level-1 solve: ``lm_iters``
-    damped Gauss-Newton iterations, no host sync. Returns (p, q, cost)."""
+    damped Gauss-Newton iterations, each step by ``_solve_step``, no host
+    sync. Returns (p, q, cost)."""
     hw = cfg.estimator.search_range + 1
     p, q = p0, q0
     lam = torch.tensor(1e-4, dtype=F64, device=p0.device)
@@ -1032,7 +1396,7 @@ def _sms1_solve_once(cfg, prob: BatchProblem, sms: Sms1Data, p0, q0, threshold,
     for _ in range(lm_iters):
         band, grad = _assemble_sms1_pose(p, q, prob, sms, threshold, hw, plan)
         _damp(band, lam, hw)
-        p_new, q_new = _retract(p, q, banded.cyclic_reduction_solve(band, -grad).reshape(-1))
+        p_new, q_new = _retract(p, q, _solve_step(band, grad, solver).reshape(-1))
         new_cost = _sms1_cost(p_new, q_new, prob, sms, threshold)
         better = new_cost < cost
         p = torch.where(better, p_new, p)
@@ -1046,14 +1410,15 @@ def optimize_batch_sms1(cfg, prob: BatchProblem, sms: Sms1Data,
                         thresholds=(1e9, 10.0, 8.0, 6.0), lm_iters: int = 6,
                         solver: str = "direct"):
     """Level 1 without the IMU chains (pose-only): attitude, binary-plane
-    and DD rows, one annealing stage per threshold. Returns (p, q,
-    per-stage costs)."""
-    _check_level1_solver(solver)
+    and DD rows, one annealing stage per threshold, each step by
+    ``solver`` ("direct", "chol_pcg" or "pcg"). Returns (p, q, per-stage
+    costs)."""
+    _check_solver(solver)
     plan = assembly_plan(prob, cfg.estimator.search_range + 1)
     p, q = prob.p_odo, prob.q_odo
     costs = []
     for th in thresholds:
-        p, q, cost = _sms1_solve_once(cfg, prob, sms, p, q, th, lm_iters, plan)
+        p, q, cost = _sms1_solve_once(cfg, prob, sms, p, q, th, lm_iters, plan, solver)
         costs.append(float(cost))
     return p, q, costs
 
@@ -1172,9 +1537,10 @@ def imu_chain_plan(T: int, hw: int, device) -> tuple:
 
 
 def _sms1_imu_solve_once(cfg, prob, sms, chain, state, threshold, lm_iters: int,
-                         plan, imu_plan):
-    """One annealing stage of the 15-dof level-1 solve. ``state`` is
-    (p, q, v, ba, bg); returns (p, q, v, ba, bg, cost), no host sync."""
+                         plan, imu_plan, solver: str = "direct"):
+    """One annealing stage of the 15-dof level-1 solve, each step by
+    ``_solve_step``. ``state`` is (p, q, v, ba, bg); returns (p, q, v, ba,
+    bg, cost), no host sync."""
     hw = cfg.estimator.search_range + 1
     gravity = _imu_params(cfg).gravity_vec(prob.p_odo.device)
     lam = torch.tensor(1e-4, dtype=F64, device=prob.p_odo.device)
@@ -1183,7 +1549,7 @@ def _sms1_imu_solve_once(cfg, prob, sms, chain, state, threshold, lm_iters: int,
         band, grad = _sms1_imu_system(*state, prob, sms, chain, threshold, hw, plan,
                                       imu_plan, gravity)
         _damp(band, lam, hw)
-        new = _retract15(*state, banded.cyclic_reduction_solve(band, -grad).reshape(-1))
+        new = _retract15(*state, _solve_step(band, grad, solver).reshape(-1))
         new_cost = _sms1_imu_cost(*new, prob, sms, chain, threshold, gravity)
         better = new_cost < cost
         state = tuple(torch.where(better, a, b) for a, b in zip(new, state))
@@ -1204,11 +1570,12 @@ def optimize_batch_sms1_imu(cfg, prob: BatchProblem, sms: Sms1Data, chain: ImuCh
     """The reference's level 1 (Estimator.cpp:2990-3077): IMU chains,
     binary planes, relative attitude and DD pseudoranges over 15-dof
     keyframe states, one block-banded system with 15×15 blocks, one
-    annealing stage per threshold. The velocities start at ``v0`` (T, 3),
-    or at differences of the odometry; the biases at zero. Returns (p, q,
-    v, ba, bg, per-stage costs); the cost is read to the host once per
-    stage."""
-    _check_level1_solver(solver)
+    annealing stage per threshold, each step by ``solver`` ("direct",
+    "chol_pcg": the f32 band factor at D = 15, or "pcg"). The velocities
+    start at ``v0`` (T, 3), or at differences of the odometry; the biases at
+    zero. Returns (p, q, v, ba, bg, per-stage costs); the cost is read to
+    the host once per stage."""
+    _check_solver(solver)
     T = prob.p_odo.shape[0]
     dev = prob.p_odo.device
     hw = cfg.estimator.search_range + 1
@@ -1221,6 +1588,6 @@ def optimize_batch_sms1_imu(cfg, prob: BatchProblem, sms: Sms1Data, chain: ImuCh
     costs = []
     for th in thresholds:
         *state, cost = _sms1_imu_solve_once(cfg, prob, sms, chain, tuple(state), th,
-                                            lm_iters, plan, imu_plan)
+                                            lm_iters, plan, imu_plan, solver)
         costs.append(float(cost))
     return (*state, costs)

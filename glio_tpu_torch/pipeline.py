@@ -21,6 +21,9 @@ episode carries them (``dense_path.csv``), exports the map (``save_pcd``),
 runs stage 2 at ``sms_fusion_level`` 0 or 1 and stage 3. Both stage-1
 paths hand the window the GNSS epochs bound to its keyframes
 (``Episode.to_inputs``), which it reads with ``gnss_in_sliding_window``.
+``lc_stage_float_ar`` is stage 3's carrier-phase variant (the float filter,
+integer ambiguity resolution, the float/AR fixes into the LC solve), which,
+as in the JAX package, no ``run_pipeline`` option selects.
 """
 
 import os
@@ -502,6 +505,81 @@ def lc_stage(cfg, ep, p_sw, q_sw, anchor, yaw, station, device):
     f = lambda a: torch.as_tensor(np.asarray(a, float), dtype=torch.float64, device=device)
     p_l, q_l, _ = lc_fusion.solve(prob, f(p_sw), f(q_sw))
     return p_l.cpu().numpy(), q_l.cpu().numpy()
+
+
+def _to_host(out):
+    """A NamedTuple of tensors on one device → the same of numpy arrays, in
+    one device-to-host copy (every field flattened into one f64 buffer)."""
+    fields = [a for a in out if a is not None]
+    flat = torch.cat([a.reshape(-1).to(torch.float64) for a in fields]).cpu().numpy()
+    host, i = [], 0
+    for a in out:
+        if a is None:
+            host.append(None)
+            continue
+        n = a.numel()
+        dtype = {torch.bool: bool, torch.int64: np.int64}.get(a.dtype, np.float64)
+        host.append(flat[i:i + n].reshape(tuple(a.shape)).astype(dtype))
+        i += n
+    return type(out)(*host)
+
+
+def float_ar_fixes(g, flt, kf_time, anchor, yaw, device, wavelength=None):
+    """Stage 3's GNSS input from the carrier-phase path, composed as the JAX
+    package's float/AR LC leg (``tests/test_lc_fusion.py:170-200``): the
+    float filter's output ``flt`` (``rtk.run_float_filter``) copied to the
+    host once, integer ambiguity resolution over it
+    (``lambda_ar.resolve_trajectory``), the fixed position where the ratio
+    test passed and the float one elsewhere, σ = √(tr Σ / 3) capped at 0.5 m
+    where fixed, the 5 m gate on the float σ, and the nearest-time
+    association to keyframes within 0.25 s. Returns numpy (gnss_p (T, 3)
+    local, gnss_valid (T,), gnss_sigma (T,) floored at 0.5 m, fixed (E,))."""
+    from .gnss import lambda_ar
+    flt = _to_host(flt)
+    sig = np.sqrt(np.maximum(np.trace(flt.pos_cov, axis1=1, axis2=2) / 3, 1e-6))
+    ok = flt.ok & (sig < 5.0)
+    pos_ar, fixed, _ = lambda_ar.resolve_trajectory(g, flt, wavelength=wavelength)
+    fixes = flt.pos.copy()
+    fixes[fixed] = pos_ar[fixed]
+    sig = np.where(fixed, np.minimum(sig, 0.5), sig)
+    local = _local_from_ecef(fixes, anchor, yaw, device)
+    ia, ib = traj.associate(kf_time, g.time, max_dt=0.25)
+    T = np.asarray(kf_time).shape[0]
+    gnss_p = np.zeros((T, 3))
+    gnss_valid = np.zeros(T, bool)
+    gnss_sigma = np.ones(T)
+    keep = ok[ib]
+    gnss_p[ia[keep]] = local[ib[keep]]
+    gnss_valid[ia[keep]] = True
+    gnss_sigma[ia[keep]] = np.maximum(sig[ib[keep]], 0.5)
+    return gnss_p, gnss_valid, gnss_sigma, fixed
+
+
+def lc_stage_float_ar(g, kf_time, p_sw, q_sw, anchor, yaw, station, *, device, x0=None,
+                      wavelength=None, timings: dict = None):
+    """The float/AR variant of stage 3 on ``device``: ``run_float_filter``
+    from ``x0`` (ECEF; default the first stage-1 pose), ``float_ar_fixes``,
+    then ``lc_fusion.solve`` with Huber IRLS (c = 2) on the GNSS factors. With
+    ``timings`` (a dict), the seconds of "filter", "ar" and "lc", each
+    closed by a device sync. Returns (p, q) tensors, the filter's output,
+    the gated fixes (``float_ar_fixes``'s first three) and the AR flags."""
+    from .factors.gnss import local_to_ecef
+    from .models.batch import _lap
+
+    def f(a):
+        return torch.as_tensor(np.asarray(a, float), dtype=torch.float64, device=device)
+    dev = torch.device(device)
+    if x0 is None:
+        x0 = local_to_ecef(f(p_sw[0]), f(anchor), f(float(yaw)))
+    t0 = _lap(timings, None, 0.0, dev)
+    flt = rtk.run_float_filter(g, station, x0, device=device)
+    t0 = _lap(timings, "filter", t0, dev)
+    *fixes, fixed = float_ar_fixes(g, flt, kf_time, anchor, yaw, device, wavelength)
+    t0 = _lap(timings, "ar", t0, dev)
+    prob = lc_fusion.build_problem(p_sw, q_sw, *fixes, device=device)
+    p_l, q_l, _ = lc_fusion.solve(prob, f(p_sw), f(q_sw), gnss_huber=2.0)
+    _lap(timings, "lc", t0, dev)
+    return p_l, q_l, flt, fixes, fixed
 
 
 def _write_cov_csv(path, res: PipelineResult, cal_rep: dict):

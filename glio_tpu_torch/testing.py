@@ -133,6 +133,21 @@ def knn_pairs_bound_ms(world_valid, i_idx, j_idx, sms, clock_mhz):
     return 8 * pairs / (sms * 128 * clock_mhz * 1e6) * 1e3
 
 
+def spd_band(T, hw, D, seed=0, device="cpu"):
+    """A block band (T, 2hw+1, D, D) f32 of a symmetric, diagonally dominant
+    (so positive definite) matrix with unit-scale entries, for the band
+    Cholesky kernels at any block size."""
+    g = torch.Generator().manual_seed(seed)
+    off = torch.randn((T, hw, D, D), generator=g, dtype=torch.float64) / (2 * D * hw)
+    band = torch.zeros((T, 2 * hw + 1, D, D), dtype=torch.float64)
+    for o in range(1, hw + 1):        # A[t][t-o] = off[t, o-1]; A[t-o][t] its transpose
+        band[o:, hw - o] = off[o:, o - 1]
+        band[:T - o, hw + o] = off[o:, o - 1].mT
+    a = torch.randn((T, D, D), generator=g, dtype=torch.float64) / D
+    band[:, hw] = 2.0 * torch.eye(D, dtype=torch.float64) + 0.1 * (a @ a.mT)
+    return band.to(torch.float32).contiguous().to(device)
+
+
 def time_device_ms(fn, reps=20):
     """Median of ``reps`` single calls of ``fn``, in ms, by CUDA events,
     after one warm-up. Each call is queued behind a ~50 us device sleep, so

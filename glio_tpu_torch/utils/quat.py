@@ -185,3 +185,23 @@ def slerp_np(q0, q1, t):
         out = (np.sin((1.0 - t) * theta) * q0
                + np.sin(t * theta) * q1) / np.sin(theta)
     return out / np.linalg.norm(out)
+
+
+def mul_np(q1, q2):
+    """Numpy ``mul`` of one quaternion pair, for host loops that chain poses
+    one at a time (no device dispatch per pose)."""
+    w1, x1, y1, z1 = q1
+    w2, x2, y2, z2 = q2
+    return np.array([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ])
+
+
+def rotate_np(q, v):
+    """Numpy ``rotate`` of one vector by one quaternion (the same expanded form)."""
+    u, w = np.asarray(q[1:4]), q[0]
+    uv = np.cross(u, v)
+    return np.asarray(v) + 2.0 * (w * uv + np.cross(u, uv))

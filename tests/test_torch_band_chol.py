@@ -1,6 +1,6 @@
 """The f32 block-banded Cholesky factor's and solve's kernel wrappers
-(``ops/band_chol.py``) on the CPU: their route to the plain versions and
-their input checks. The kernels themselves run only on the card
+(``ops/band_chol.py``) on the CPU: their route to the plain versions, their
+input checks and the block sizes and half-widths the kernels are built for. The kernels themselves run only on the card
 (``tests/test_torch_cuda.py``)."""
 
 import numpy as np
@@ -9,6 +9,7 @@ import torch
 
 from glio_tpu_torch.ops import band_chol
 from glio_tpu_torch.solver import banded
+from glio_tpu_torch.testing import spd_band
 
 
 def _band(T=12, hw=3, D=6, seed=0):
@@ -102,3 +103,54 @@ def test_band_cholesky_solve_checks_its_input(case):
     err = TypeError if case.startswith("f64") else ValueError
     with pytest.raises(err):
         band_chol.band_cholesky_solve(*bad)
+
+
+def test_kernel_table_is_the_shared_memory_bound():
+    """The kernels are built for D = 6, 7 and 15, each up to the largest hw
+    whose shared memory fits the 227 KB a block may opt into: both kernels
+    fit at D = 15, hw = 8 (230,468 and 204,100 bytes), the factor does not at
+    hw = 9 (264,672)."""
+    assert band_chol.KERNEL_D == {6: 15, 7: 15, 15: 8}
+    assert band_chol._smem(15, 8) == (230468, 204100)
+    assert band_chol._smem(15, 9)[0] > band_chol.SMEM_MAX >= band_chol._smem(15, 8)[0]
+
+
+@pytest.mark.parametrize("D, hw", [(5, 3), (8, 3), (16, 1), (6, 16), (7, 16), (15, 9)])
+def test_kernel_shape_refusals(D, hw):
+    """A block size the kernels are not built for, or an hw past that size's
+    shared memory, is refused with a message that names what is built."""
+    with pytest.raises(ValueError, match="D in \\[6, 7, 15\\]" if D not in (6, 7, 15)
+                       else f"hw <= {band_chol.KERNEL_D[D]}"):
+        band_chol._check_kernel_shape("band_cholesky", D, hw)
+
+
+@pytest.mark.parametrize("D, hw", [(7, 7), (15, 7), (15, 8), (8, 3)])
+def test_band_kernels_on_cpu_are_plain_at_any_block_size(D, hw):
+    """On the CPU both wrappers run their plain versions at any block size
+    (D = 8 included: only the card's kernels are limited to the built ones)."""
+    band = spd_band(40, hw, D, seed=D)
+    L = band_chol.band_cholesky(band, 3e-4)
+    assert torch.equal(L, banded.block_cholesky(band, jitter=3e-4))
+    assert bool(torch.isfinite(L).all())
+    b = torch.tensor(np.random.default_rng(D).normal(size=(40, D)), dtype=torch.float32)
+    x = band_chol.band_cholesky_solve(L, b)
+    assert torch.equal(x, banded.block_cholesky_solve(L, b))
+    x64 = banded.block_cholesky_solve(L.double(), b.double())
+    assert (x.double() - x64).abs().max() <= 1e-4 * x64.abs().max()
+
+
+def test_builds_of_other_block_sizes_are_their_own_libraries():
+    """Every block size builds one library per hw, under a name and hash of
+    its own; the build of every kernel makes those of the batch paths (hw
+    7), and ``band_chol.cu`` is built only so."""
+    from glio_tpu_torch.ops import _build
+    defines = {D: {hw: (f"BAND_CHOL_D={D}", f"BAND_CHOL_HW={hw}") for hw in (3, 7)}
+               for D in (6, 7, 15)}
+    paths = {_build.library_path("band_chol.cu", d) for by_hw in defines.values()
+             for d in by_hw.values()}
+    assert len(paths) == 6
+    for D in (6, 7, 15):
+        name = _build.library_path("band_chol.cu", defines[D][7]).name
+        assert name.startswith(f"libband_chol_{D}_7_")
+    assert {d for _, d in _build.VARIANTS} == {defines[D][7] for D in (6, 7, 15)}
+    assert "band_chol.cu" not in _build.SOURCES

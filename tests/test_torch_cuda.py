@@ -1,8 +1,8 @@
 """The port's CUDA path on the card: the k-NN kernel (single problems and
 batches of keyframe pairs, the loop-closure ICP's 1024 x 25,600 among them)
 and the copy kernel against their plain versions, bit for bit, the f32
-band Cholesky factor and solve kernels against their plain versions and
-``chol_pcg``, the probe, the replay, the batch stage, batch level 1, stage
+band Cholesky factor and solve kernels against their plain versions (at
+the block sizes 6, 7 and 15) and ``chol_pcg``, the probe, the replay, the batch stage, batch level 1, stage
 3, backend fusion, the LOAM features, the LiDAR odometry, SPP and the GNSS
 window on the card against the same code on the CPU.
 
@@ -30,7 +30,7 @@ from glio_tpu_torch.ops import band_chol
 from glio_tpu_torch.ops import knn as knn_mod
 from glio_tpu_torch.ops import probe
 from glio_tpu_torch.solver import banded
-from glio_tpu_torch.testing import KNN_CASES, KNN_PAIR_CASES, cloud
+from glio_tpu_torch.testing import KNN_CASES, KNN_PAIR_CASES, cloud, spd_band
 
 pytestmark = pytest.mark.cuda
 F32 = np.float32
@@ -282,6 +282,75 @@ def test_band_kernels_refuse_unaligned_views(cuda):
     with pytest.raises(ValueError):
         band_chol.band_cholesky_solve(shifted(M.Lb), (g * M.s).to(torch.float32))
     assert (band_chol.band_cholesky.launches, band_chol.band_cholesky_solve.launches) == before
+
+
+@pytest.mark.parametrize("D", [7, 15])
+@pytest.mark.parametrize("broken", [False, True], ids=["sound", "broken_row"])
+def test_band_kernels_at_other_block_sizes(cuda, D, broken):
+    """The factor and solve kernels at D = 7 (pose and zenith bias) and D =
+    15 (level 1's IMU-chain states), hw 7, on a diagonally dominant band of
+    300 block rows (``testing.spd_band``), block row 150's diagonal negated
+    where ``broken``: one launch each; NaN rows equal and the factor within
+    2e-5 of its largest entry of ``block_cholesky``; the solve, with the
+    broken row's factor replaced by the identity as ``f32_chol_precond``
+    does, within the larger of 2e-5 of max |x| and 10x the plain version's
+    f32 round-off against f64 (chip_smoke's bounds)."""
+    band = spd_band(300, 7, D, seed=D, device=cuda)
+    if broken:
+        band[150, 7] = -band[150, 7]
+    before = band_chol.band_cholesky.launches, band_chol.band_cholesky_solve.launches
+    L_k = band_chol.band_cholesky(band, 3e-4)
+    L_p = banded.block_cholesky(band, jitter=3e-4)
+    bad = ~torch.isfinite(L_p).flatten(1).all(1)
+    assert torch.nonzero(bad).flatten().tolist() == ([150] if broken else [])
+    assert torch.equal(torch.isfinite(L_k), torch.isfinite(L_p))
+    fin = torch.isfinite(L_p)
+    assert (L_k - L_p)[fin].abs().max() <= 2e-5 * L_p[fin].abs().max()
+    eye_row = torch.zeros_like(L_p[0])
+    eye_row[0] = torch.eye(D, device=cuda)
+    Lb = torch.where(bad[:, None, None, None], eye_row, L_p).contiguous()
+    b = torch.tensor(np.random.default_rng(D).normal(size=(300, D)), dtype=torch.float32,
+                     device=cuda)
+    x_k = band_chol.band_cholesky_solve(Lb, b)
+    x_p = banded.block_cholesky_solve(Lb, b)
+    x_64 = banded.block_cholesky_solve(Lb.double(), b.double())
+    scale = x_p.abs().max()
+    roundoff = (x_p.double() - x_64).abs().max() / scale
+    assert (x_k - x_p).abs().max() <= max(2e-5, 10 * float(roundoff)) * scale
+    after = band_chol.band_cholesky.launches, band_chol.band_cholesky_solve.launches
+    assert after == (before[0] + 1, before[1] + 1)
+
+
+def test_band_kernels_refuse_unbuilt_shapes_on_card(cuda):
+    """D = 8 and D = 15 at hw = 9 (past its shared memory): the wrappers
+    raise, launching nothing."""
+    before = band_chol.band_cholesky.launches, band_chol.band_cholesky_solve.launches
+    for D, hw in ((8, 3), (15, 9)):
+        band = spd_band(20, hw, D, device=cuda)
+        with pytest.raises(ValueError):
+            band_chol.band_cholesky(band, 3e-4)
+        with pytest.raises(ValueError):
+            band_chol.band_cholesky_solve(torch.zeros((20, hw + 1, D, D), device=cuda),
+                                          torch.zeros((20, D), device=cuda))
+    assert (band_chol.band_cholesky.launches, band_chol.band_cholesky_solve.launches) == before
+
+
+def test_atm_chol_pcg_on_card_matches_cpu(cuda):
+    """The 7-dof band of ``optimize_batch_atm`` on the T = 300 drive (its
+    zenith biases at 0.1 m, threshold 6, damping 1e-6): ``pcg_chol_solve``
+    on the card (the D = 7 kernels) against the CPU within 1e-5 of |x|, as
+    at D = 6."""
+    xs = []
+    for dev in (cuda, "cpu"):
+        cfg, prob = _batch_problem(dev)
+        hw = cfg.estimator.search_range + 1
+        z = torch.full((300,), 0.1, dtype=torch.float64, device=dev)
+        band, grad, *_ = batch._atm_system(cfg, prob, prob.p_odo, prob.q_odo, z, 6.0, hw,
+                                           batch.NO_ROBUST, batch.assembly_plan(prob, hw))
+        assert band.shape == (300, 2 * hw + 1, 7, 7)
+        batch._damp(band, torch.tensor(1e-6, dtype=torch.float64, device=dev), hw)
+        xs.append(banded.pcg_chol_solve(band, -grad).cpu())
+    assert (xs[0] - xs[1]).abs().max() <= 1e-5 * xs[1].abs().max()
 
 
 def test_chol_pcg_on_card_matches_cpu(cuda):
