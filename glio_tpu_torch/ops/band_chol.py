@@ -29,9 +29,13 @@ _WARPS, _STAGES, _AHEAD = 4, 3, 16   # kWarps, kStages, kAhead
 def _smem(D: int, hw: int) -> tuple:
     """The bytes of shared memory of the factor and the solve kernel at (D,
     hw): band_chol.cu's factor_smem and solve_smem."""
+    def round4(n):
+        return (n + 3) // 4 * 4
     dd, rdd, ring = D * D, (hw + 1) * D * D, hw + 2 * _WARPS
-    factor = (ring * rdd + _WARPS * _STAGES * rdd + _WARPS * dd) * 4 + (ring + 1) * 4
-    solve = (_AHEAD + hw + 1) * (rdd + (D + 3) // 4 * 4) * 4
+    factor = ((_WARPS * round4(dd) + ring * round4(D) + _WARPS * _STAGES * round4(rdd + 3)
+               + ring * rdd) * 4 + (ring + 2) * 4)
+    solve = ((_AHEAD + hw + 1) * (round4(rdd + (3 if rdd % 4 else 0)) + round4(D))
+             + (hw + 4) * round4(D)) * 4
     return factor, solve
 
 

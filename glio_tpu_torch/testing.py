@@ -140,7 +140,7 @@ def spd_band(T, hw, D, seed=0, device="cpu"):
     g = torch.Generator().manual_seed(seed)
     off = torch.randn((T, hw, D, D), generator=g, dtype=torch.float64) / (2 * D * hw)
     band = torch.zeros((T, 2 * hw + 1, D, D), dtype=torch.float64)
-    for o in range(1, hw + 1):        # A[t][t-o] = off[t, o-1]; A[t-o][t] its transpose
+    for o in range(1, min(hw, T - 1) + 1):   # A[t][t-o] = off[t, o-1]; A[t-o][t] its transpose
         band[o:, hw - o] = off[o:, o - 1]
         band[:T - o, hw + o] = off[o:, o - 1].mT
     a = torch.randn((T, D, D), generator=g, dtype=torch.float64) / D

@@ -224,42 +224,111 @@ def _stiff_band(device, broken=False):
     return band, -grad
 
 
-@pytest.mark.parametrize("broken", [False, True], ids=["sound", "broken_row"])
-def test_band_cholesky_kernel_matches_plain_version(cuda, broken):
-    """The f32 factor kernel against ``block_cholesky`` on the card, one
-    launch: NaN in the same rows (block row 150 alone where it breaks) and
-    the rest within 2e-5 of the largest entry (chip_smoke.BAND_CHOL_RTOL)."""
-    band, _ = _stiff_band(cuda, broken)
-    band_s = banded._equilibrate(band)[0].to(torch.float32).contiguous()
-    before = band_chol.band_cholesky.launches
-    L_k = band_chol.band_cholesky(band_s, 3e-4)
-    L_p = banded.block_cholesky(band_s, jitter=3e-4)
-    assert band_chol.band_cholesky.launches == before + 1
+def _band_at(D, device, broken=False, T=300):
+    """The band the kernels are held on at block size D: at D = 6 the stiff
+    level-0 chain (equilibrated, f32); at D = 7 and 15 a diagonally dominant
+    band of T block rows at hw 7 (``testing.spd_band``). ``broken`` negates
+    block row T // 2's diagonal block."""
+    if D == 6 and T == 300:
+        band, _ = _stiff_band(device, broken)
+        return banded._equilibrate(band)[0].to(torch.float32).contiguous()
+    band = spd_band(T, 7, D, seed=D, device=device)
+    if broken:
+        band[T // 2, 7] = -band[T // 2, 7]
+    return band
+
+
+def _check_factor(band, L_k, broken):
+    """The kernel's factor against ``block_cholesky``: NaN in the same rows
+    (block row T // 2 alone where it breaks) and the rest within 2e-5 of the
+    largest entry (chip_smoke.BAND_CHOL_RTOL)."""
+    L_p = banded.block_cholesky(band, jitter=3e-4)
     bad = ~torch.isfinite(L_p).flatten(1).all(1)
     assert torch.equal(torch.isfinite(L_k), torch.isfinite(L_p))
-    assert torch.nonzero(bad).flatten().tolist() == ([150] if broken else [])
+    assert torch.nonzero(bad).flatten().tolist() == ([band.shape[0] // 2] if broken else [])
     fin = torch.isfinite(L_p)
-    assert (L_k - L_p)[fin].abs().max() <= 2e-5 * L_p[fin].abs().max()
+    if bool(fin.any()):
+        assert (L_k - L_p)[fin].abs().max() <= 2e-5 * L_p[fin].abs().max()
+    return L_p, bad
 
 
-@pytest.mark.parametrize("broken", [False, True], ids=["sound", "identity_row"])
-def test_band_cholesky_solve_kernel_matches_plain_version(cuda, broken):
-    """The f32 solve kernel against ``block_cholesky_solve`` on the card, one
-    launch, with ``chol_pcg``'s factor of the stiff chain (block row 150 the
-    identity where its Cholesky broke down): within 2e-5 of max |x|
-    (chip_smoke.BAND_SOLVE_RTOL)."""
-    band, g = _stiff_band(cuda, broken)
-    M = banded.f32_chol_precond(band)
-    eye_row = torch.zeros_like(M.Lb[0])
-    eye_row[0] = torch.eye(6, device=cuda)
-    assert torch.equal(M.Lb[150], eye_row) == broken
-    rhs = (g * M.s).to(torch.float32)
-    before = band_chol.band_cholesky_solve.launches
-    x_k = band_chol.band_cholesky_solve(M.Lb, rhs)
-    assert band_chol.band_cholesky_solve.launches == before + 1
-    x_p = banded.block_cholesky_solve(M.Lb, rhs)
+def _check_solve(Lb, b, x_k):
+    """The kernel's solve against ``block_cholesky_solve``: within the larger
+    of 2e-5 of max |x| and 10x the plain version's own f32 round-off against
+    f64 (chip_smoke.BAND_SOLVE_RTOL and its bound)."""
+    x_p = banded.block_cholesky_solve(Lb, b)
+    x_64 = banded.block_cholesky_solve(Lb.double(), b.double())
+    scale = x_p.abs().max()
+    roundoff = (x_p.double() - x_64).abs().max() / scale
     assert bool(torch.isfinite(x_k).all())
-    assert (x_k - x_p).abs().max() <= 2e-5 * x_p.abs().max()
+    assert (x_k - x_p).abs().max() <= max(2e-5, 10 * float(roundoff)) * scale
+
+
+def _identity_rows(L, bad):
+    """The factor with each broken block row the identity, as
+    ``f32_chol_precond`` makes it."""
+    D = L.shape[-1]
+    eye_row = torch.zeros_like(L[0])
+    eye_row[0] = torch.eye(D, device=L.device)
+    return torch.where(bad[:, None, None, None], eye_row, L).contiguous()
+
+
+@pytest.mark.parametrize("D", [6, 7, 15])
+@pytest.mark.parametrize("broken", [False, True], ids=["sound", "broken_row"])
+def test_band_cholesky_kernel_matches_plain_version(cuda, D, broken):
+    """The f32 factor kernel against ``block_cholesky`` on the card at each
+    built block size (hw 7), one launch: the stiff level-0 chain at D = 6
+    (the pose blocks), a diagonally dominant band at D = 7 (pose and zenith
+    bias) and 15 (level 1's IMU-chain states), 300 block rows each."""
+    band = _band_at(D, cuda, broken)
+    before = band_chol.band_cholesky.launches
+    L_k = band_chol.band_cholesky(band, 3e-4)
+    assert band_chol.band_cholesky.launches == before + 1
+    _check_factor(band, L_k, broken)
+
+
+@pytest.mark.parametrize("D", [6, 7, 15])
+@pytest.mark.parametrize("broken", [False, True], ids=["sound", "identity_row"])
+def test_band_cholesky_solve_kernel_matches_plain_version(cuda, D, broken):
+    """The f32 solve kernel against ``block_cholesky_solve`` on the card at
+    each built block size, one launch: at D = 6 ``chol_pcg``'s factor of the
+    stiff chain and its right-hand side, at D = 7 and 15 the factor of
+    ``_band_at``'s band and a random right-hand side; where ``broken``, block
+    row 150 of the factor is the identity (its Cholesky broke down)."""
+    if D == 6:
+        band, g = _stiff_band(cuda, broken)
+        M = banded.f32_chol_precond(band)
+        Lb, b = M.Lb, (g * M.s).to(torch.float32)
+    else:
+        band = _band_at(D, cuda, broken)
+        Lb = _identity_rows(*_check_factor(band, band_chol.band_cholesky(band, 3e-4), broken))
+        b = torch.tensor(np.random.default_rng(D).normal(size=(300, D)), dtype=torch.float32,
+                         device=cuda)
+    eye_row = torch.zeros_like(Lb[0])
+    eye_row[0] = torch.eye(D, device=cuda)
+    assert torch.equal(Lb[150], eye_row) == broken
+    before = band_chol.band_cholesky_solve.launches
+    x_k = band_chol.band_cholesky_solve(Lb, b)
+    assert band_chol.band_cholesky_solve.launches == before + 1
+    _check_solve(Lb, b, x_k)
+
+
+@pytest.mark.parametrize("D", [6, 7, 15])
+@pytest.mark.parametrize("T", [1, 5])
+def test_band_kernels_on_short_chains(cuda, D, T):
+    """Chains shorter than the kernels' pipelines (T = 5 < hw + 2, and T =
+    1): both kernels at hw 7 against their plain versions, as above, with
+    block row T // 2 broken where T > 1."""
+    broken = T > 1
+    band = _band_at(D, cuda, broken, T=T)
+    before = band_chol.band_cholesky.launches, band_chol.band_cholesky_solve.launches
+    L_p, bad = _check_factor(band, band_chol.band_cholesky(band, 3e-4), broken)
+    Lb = _identity_rows(L_p, bad)
+    b = torch.tensor(np.random.default_rng(T).normal(size=(T, D)), dtype=torch.float32,
+                     device=cuda)
+    _check_solve(Lb, b, band_chol.band_cholesky_solve(Lb, b))
+    after = band_chol.band_cholesky.launches, band_chol.band_cholesky_solve.launches
+    assert after == (before[0] + 1, before[1] + 1)
 
 
 def test_band_kernels_refuse_unaligned_views(cuda):
@@ -282,43 +351,6 @@ def test_band_kernels_refuse_unaligned_views(cuda):
     with pytest.raises(ValueError):
         band_chol.band_cholesky_solve(shifted(M.Lb), (g * M.s).to(torch.float32))
     assert (band_chol.band_cholesky.launches, band_chol.band_cholesky_solve.launches) == before
-
-
-@pytest.mark.parametrize("D", [7, 15])
-@pytest.mark.parametrize("broken", [False, True], ids=["sound", "broken_row"])
-def test_band_kernels_at_other_block_sizes(cuda, D, broken):
-    """The factor and solve kernels at D = 7 (pose and zenith bias) and D =
-    15 (level 1's IMU-chain states), hw 7, on a diagonally dominant band of
-    300 block rows (``testing.spd_band``), block row 150's diagonal negated
-    where ``broken``: one launch each; NaN rows equal and the factor within
-    2e-5 of its largest entry of ``block_cholesky``; the solve, with the
-    broken row's factor replaced by the identity as ``f32_chol_precond``
-    does, within the larger of 2e-5 of max |x| and 10x the plain version's
-    f32 round-off against f64 (chip_smoke's bounds)."""
-    band = spd_band(300, 7, D, seed=D, device=cuda)
-    if broken:
-        band[150, 7] = -band[150, 7]
-    before = band_chol.band_cholesky.launches, band_chol.band_cholesky_solve.launches
-    L_k = band_chol.band_cholesky(band, 3e-4)
-    L_p = banded.block_cholesky(band, jitter=3e-4)
-    bad = ~torch.isfinite(L_p).flatten(1).all(1)
-    assert torch.nonzero(bad).flatten().tolist() == ([150] if broken else [])
-    assert torch.equal(torch.isfinite(L_k), torch.isfinite(L_p))
-    fin = torch.isfinite(L_p)
-    assert (L_k - L_p)[fin].abs().max() <= 2e-5 * L_p[fin].abs().max()
-    eye_row = torch.zeros_like(L_p[0])
-    eye_row[0] = torch.eye(D, device=cuda)
-    Lb = torch.where(bad[:, None, None, None], eye_row, L_p).contiguous()
-    b = torch.tensor(np.random.default_rng(D).normal(size=(300, D)), dtype=torch.float32,
-                     device=cuda)
-    x_k = band_chol.band_cholesky_solve(Lb, b)
-    x_p = banded.block_cholesky_solve(Lb, b)
-    x_64 = banded.block_cholesky_solve(Lb.double(), b.double())
-    scale = x_p.abs().max()
-    roundoff = (x_p.double() - x_64).abs().max() / scale
-    assert (x_k - x_p).abs().max() <= max(2e-5, 10 * float(roundoff)) * scale
-    after = band_chol.band_cholesky.launches, band_chol.band_cholesky_solve.launches
-    assert after == (before[0] + 1, before[1] + 1)
 
 
 def test_band_kernels_refuse_unbuilt_shapes_on_card(cuda):
