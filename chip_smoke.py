@@ -172,6 +172,23 @@ Phases, each of which raises on failure:
     episode with DD and Doppler rows in the window and the batch: the same
     gates and the window's receiver clock drift within 10x JAX's spread.
 
+18. the multi-device batch solve, four ranks on the one card (gloo; NCCL
+    refuses two ranks on one GPU), started by ``parallel.launch.run_ranks``,
+    against ``tests/data/parallel_T3493_seed4.npz`` (made by
+    ``scripts/make_torch_parallel_fixture.py``): ``make_sharded_cr_solve`` on
+    the batch phase's band at its solution (T = 3493, D = 6, hw 7: 499
+    super-rows, 125 a rank) within 1e-8 of max |x| of the single-device
+    ``cyclic_reduction_solve``; ``make_sharded_pcg`` at dp = 2, sp = 2, 60
+    iterations, on two level-0 bands against ``pcg_solve`` within 10x JAX's
+    own sharded-against-single distance; ``optimize_batch_sharded`` on the
+    batch drive against this run's ``optimize_batch(solver="direct")``
+    within 10x JAX's own distance or its 1e-9 m nudge spread, the larger,
+    and against JAX f64 within 3e-4 m; the
+    seconds of the ranks' start-up, of each solve and of its collectives;
+19. each small public function off the pipeline's paths
+    (``testing.item9_cases``) on the card against its CPU result in this
+    run, at f64 round-off.
+
 The batched 5-NN is also held to its plain version in phase 3, on
 ``glio_tpu_torch.testing.KNN_PAIR_CASES``, one launch each: an
 all-invalid map frame, ragged and unaligned frames of 1000 and 1001
@@ -220,6 +237,7 @@ from glio_tpu_torch.ops import _build
 from glio_tpu_torch.ops import band_chol as band_chol_mod
 from glio_tpu_torch.ops import knn as knn_mod
 from glio_tpu_torch.ops import probe as probe_mod
+from glio_tpu_torch.parallel.launch import run_ranks
 from glio_tpu_torch.pipeline import run_pipeline
 from glio_tpu_torch.solver import banded
 from glio_tpu_torch.testing import (KNN_CASES, KNN_PAIR_CASES, cloud, dense_episode,
@@ -245,6 +263,10 @@ CARRIER_FIXTURE = os.path.join(ROOT, "tests", "data", "carrier_T3493_seed15.npz"
 VARIANTS_FIXTURE = os.path.join(ROOT, "tests", "data", "batch_variants_T3493_seed4.npz")
 CADENCE_FIXTURE = os.path.join(ROOT, "tests", "data", "batch_variants_cadence_T300_seed4.npz")
 SMS1_SOLVERS_FIXTURE = os.path.join(ROOT, "tests", "data", "batch_variants_sms1_T3493_seed4.npz")
+PARALLEL_FIXTURE = os.path.join(ROOT, "tests", "data", "parallel_T3493_seed4.npz")
+SHARDED_RANKS = 4             # ranks of the multi-device phase, all on cuda:0
+SPIKE_RTOL = 1e-8             # sharded direct solve vs single (dryrun_multichip's gate)
+ITEM9_RTOL = 1e-12            # a small function on the card vs the CPU, of max(1, max |x|)
 SPP_TOL_M = 1e-6              # SPP fixes, Doppler velocities (m/s) against JAX's
 GNSS_SUM_RTOL = 1e-12         # checksums of converted epochs and problems (round-off)
 BAND_CHOL_RTOL = 2e-5         # f32 band factor, kernel vs plain, of its largest entry
@@ -538,15 +560,7 @@ def batch_problem(dev):
     cfg = GlioConfig()
     check(json.loads(str(fx["config_json"])) == json.loads(json.dumps(dataclasses.asdict(cfg))),
           "the batch fixture was made with another configuration")
-    anchor = np.asarray(cfg.initialization.anc_ecef)
-    station = np.asarray(cfg.initialization.station_ecef)
-    t0 = time.perf_counter()
-    kf_time, p_true, q_true, p_odo = drifted_trajectory(sc["n_keyframes"], sc["max_drift"])
-    gnss = simulate_gnss_epochs(p_true, kf_time, anchor, station, psr_noise=sc["psr_noise"],
-                                epoch_stride=sc["epoch_stride"], seed=sc["seed"])
-    sim_s = time.perf_counter() - t0
-    build_s, prob = _sync_s(lambda: batch_mod.build_problem(
-        cfg, p_odo, q_true, kf_time, gnss, anchor, 0.0, station, device=dev))
+    prob, p_true, p_odo, sim_s, build_s = testing.batch_drive_problem(sc, cfg, dev)
     return fx, sc, cfg, prob, p_true, p_odo, (sim_s, build_s)
 
 
@@ -624,6 +638,7 @@ def batch_phase(dev):
           f"cost {1e3 * cost_s:.2f} ms; marginal covariance {1e3 * cov_s:.1f} ms, "
           f"calibration {1e3 * cal_s:.1f} ms (host); covariances at JAX's trajectory vs "
           f"JAX: diag {dcov:.3e}, calibrated std {dstd:.3e} (max rel)")
+    return dict(sc=sc, cfg=cfg, fx=fx, prob=prob, p=p2, q=q2, solve_s=solve_s)
 
 
 def sms1_config(base):
@@ -1869,16 +1884,20 @@ def gnss_phase(dev):
 
 def _launches(fn):
     """(CUDA kernel launches, result) of one run of ``fn`` under
-    ``torch.profiler``, as ``scripts/profile_torch_batch.py`` counts them
-    (None where no card is present)."""
+    ``torch.profiler``: the device's kernels, copies and sets, as
+    ``scripts/profile_torch_batch.py`` counts them. The CUDA activity alone,
+    counted from the profiler's raw records: with every host operator
+    recorded and the event tree built, the count of the 1165-epoch filter
+    took ~147 s on an H100 80GB HBM3 at 700 W, this way 21-32 s, for the same
+    count (None where no card is present)."""
     if not torch.cuda.is_available():
         return None, fn()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events()), out
+    records = prof.profiler.kineto_results.events()
+    return sum(e.device_type() == torch.autograd.DeviceType.CUDA for e in records), out
 
 
 def _rel_spread(a, b):
@@ -1910,7 +1929,8 @@ def carrier_phase(dev, drive, g):
     p_lc, q_lc, flt, (gnss_p, gnss_valid, _), fixed = pipeline.lc_stage_float_ar(
         g, kf_time, p_odo, q_true, anchor, 0.0, station, device=dev, x0=x0, timings=tm)
     filter_s, ar_s, lc_s = tm["filter"], tm["ar"], tm["lc"]
-    n_launch, _ = _launches(lambda: gnss_rtk.run_float_filter(g, station, x0, device=dev))
+    count_s, (n_launch, _) = _sync_s(
+        lambda: _launches(lambda: gnss_rtk.run_float_filter(g, station, x0, device=dev)))
     host = pipeline._to_host(flt)
     E = host.pos.shape[0]
     for name in ("ok", "n_dd", "n_car"):
@@ -1944,7 +1964,8 @@ def carrier_phase(dev, drive, g):
     print(f"carrier phase ({E} epochs, {int(host.n_car.sum())} carrier DD rows): float filter "
           f"{1e3 * filter_s:.1f} ms (synchronized wall clock, {1e3 * filter_s / E:.3f} ms an "
           f"epoch), {n_launch} kernel launches ({(n_launch or 0) / E:.0f} an epoch, "
-          f"torch.profiler); AR {ar_s:.2f} s (host, one copy of the filter's output): "
+          f"torch.profiler, counted in {count_s:.1f} s); AR {ar_s:.2f} s (host, one copy of "
+          f"the filter's output): "
           f"{int(fixed.sum())} of {E} epochs fixed ({100 * fixed.mean():.1f} %), flags equal to "
           f"JAX's at all {int(stable.sum())} where JAX's own are stable ({moved} of the other "
           f"{int((~stable).sum())} differ); LC solve T={p_odo.shape[0]} {1e3 * lc_s:.1f} ms, "
@@ -1954,6 +1975,117 @@ def carrier_phase(dev, drive, g):
           "nudge): " + ", ".join(report) + f"; ok, n_dd, n_car and the gated factors equal; "
           f"RMSE vs truth float {_rmse(host.pos[host.ok], rover[host.ok]):.3f} m, LC "
           f"{_rmse(p_lc, p_true):.3f} m (odometry {_rmse(p_odo, p_true):.3f} m)")
+
+
+# --- phase 18: the multi-device batch solve ------------------------------------------------
+
+def sharded_phase(dev, ctx):
+    """18: four ranks on the one card (``testing.sharded_batch_rank``) against
+    the single-device solves of this process on the same bands, and against
+    ``tests/data/parallel_T3493_seed4.npz``."""
+    px = np.load(PARALLEL_FIXTURE)
+    psc = json.loads(str(px["scenario_json"]))
+    sc, cfg, fx, prob = ctx["sc"], ctx["cfg"], ctx["fx"], ctx["prob"]
+    check(json.loads(str(px["config_json"])) == json.loads(json.dumps(dataclasses.asdict(cfg)))
+          and all(psc[k] == sc[k] for k in sc if k != "solver")
+          and psc["ranks"] == SHARDED_RANKS and psc["pcg_layout"] == [2, 2],
+          "the parallel fixture was made for another scenario")
+    spec = dict(scenario=sc, p_solution=ctx["p"].cpu().numpy(), q_solution=ctx["q"].cpu().numpy(),
+                p_jax=fx["p_f64"], q_jax=fx["q_f64"], pcg_iters=psc["pcg_iters"])
+    t_launch = time.time()
+    t0 = time.perf_counter()
+    ranks = run_ranks(testing.sharded_batch_rank, SHARDED_RANKS, dev, args=(spec,))
+    wall_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    # The references, on the same bands (each rank's sums equal this process's).
+    (band, rhs), (band2, b2) = testing.sharded_batch_bands(
+        batch_mod, cfg, prob, sc, (ctx["p"], ctx["q"]),
+        (torch.as_tensor(fx["p_f64"], device=dev), torch.as_tensor(fx["q_f64"], device=dev)))
+    sums = torch.stack([band.sum(), (band * band).sum(), band2.sum()]).cpu()
+    for r in ranks:
+        check(torch.allclose(r["band_sums"], sums, rtol=1e-12, atol=0),
+              f"rank {r['rank']} assembled other bands: {r['band_sums']} != {sums}")
+        check(torch.equal(r["p"], r0["p"]) and torch.equal(r["q"], r0["q"]),
+              f"rank {r['rank']} returned another trajectory than rank 0")
+    cr_single_s, x_ref = _sync_s(lambda: banded.cyclic_reduction_solve(band, rhs))
+    x_ref = x_ref.cpu()
+    rel_cr = float((r0["x_cr"] - x_ref).abs().max() / x_ref.abs().max())
+    pcg_single_s, pcg_ref = _sync_s(lambda: [banded.pcg_solve(band2[n], b2[n],
+                                                              iters=psc["pcg_iters"])[0]
+                                             for n in range(2)])
+    rel_pcg = max(float((r0["x_pcg"][n] - pcg_ref[n].cpu()).abs().max()
+                        / pcg_ref[n].abs().max()) for n in range(2))
+    tol_pcg = 10.0 * float(px["pcg_rel"])
+    p_dir, q_dir = ctx["p"].cpu(), ctx["q"].cpu()
+    d_p = float((r0["p"] - p_dir).abs().max())
+    d_q = float((r0["q"] - q_dir).abs().max())
+    d_jax = float(np.abs(r0["p"].numpy() - fx["p_f64"]).max())
+    # JAX's own sharded-against-single distance, or its spread under four
+    # 1e-9 m nudges of the odometry where that is larger: near convergence
+    # the LM's accept decisions turn round-off into moves of up to it.
+    tol_p = 10.0 * max(float(px["d_p_sharded"]), float(px["nudge_p"]))
+    tol_q = 10.0 * max(float(px["d_q_sharded"]), float(px["nudge_q"]))
+    startup = max(r["t_ready"] for r in ranks) - t_launch
+
+    def comm(key):
+        calls, nbytes, secs = (max(r[key][i] for r in ranks) for i in range(3))
+        return f"{calls} collectives, {nbytes / 1e6:.3f} MB a rank, {secs:.3f} s"
+
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "the CPU"
+    print(f"multi-device ({SHARDED_RANKS} ranks on {where}, backend "
+          f"gloo, file:// rendezvous): ranks started in {startup:.2f} s, problem and bands "
+          f"{max(r['setup_s'] for r in ranks):.2f} s a rank, {wall_s:.1f} s in all")
+    print(f"multi-device (a) sharded CR solve T={band.shape[0]}: {1e3 * r0['cr_s']:.1f} ms "
+          f"(single-device {1e3 * cr_single_s:.1f} ms), {comm('cr_comm')}; vs "
+          f"cyclic_reduction_solve {rel_cr:.3e} of max |x| (tol {SPIKE_RTOL})")
+    print(f"multi-device (b) sharded PCG dp=2 sp=2, {psc['pcg_iters']} iterations, 2 bands "
+          f"T={band2.shape[1]}: {1e3 * r0['pcg_s']:.1f} ms (single-device, both bands "
+          f"{1e3 * pcg_single_s:.1f} ms), {comm('pcg_comm')} over all ranks, "
+          f"{r0['pcg_sp_comm'][0]} over each sp pair; vs pcg_solve {rel_pcg:.3e} of max |x| "
+          f"(tol {tol_pcg:.3e}, 10x JAX's {float(px['pcg_rel']):.3e})")
+    print(f"multi-device (c) optimize_batch_sharded (4 stages x {sc['lm_iters']} LM "
+          f"iterations): {r0['batch_s']:.2f} s (single-device {ctx['solve_s']:.2f} s), "
+          f"{comm('batch_comm')}; vs optimize_batch max |dp| {d_p:.3e} m, |dq| {d_q:.3e} "
+          f"(tol {tol_p:.3e} m, {tol_q:.3e}: 10x the larger of JAX's own sharded-vs-single "
+          f"{float(px['d_p_sharded']):.3e} m, {float(px['d_q_sharded']):.3e} and its spread under "
+          f"four 1e-9 m odometry nudges {float(px['nudge_p']):.3e} m, {float(px['nudge_q']):.3e}), vs JAX f64 "
+          f"{d_jax:.3e} m (tol {BATCH_F64_TOL_M}); costs {r0['costs']}")
+    check(bool(torch.isfinite(r0["x_cr"]).all()) and tuple(r0["x_cr"].shape) == tuple(rhs.shape),
+          "the sharded CR solve is not finite or has the wrong shape")
+    check(rel_cr < SPIKE_RTOL, f"sharded CR solve vs cyclic_reduction_solve: {rel_cr:.3e} "
+                               f"of max |x| >= {SPIKE_RTOL}")
+    check(bool(torch.isfinite(r0["x_pcg"]).all()), "the sharded PCG is not finite")
+    check(rel_pcg <= tol_pcg, f"sharded PCG vs pcg_solve: {rel_pcg:.3e} of max |x| > "
+                              f"{tol_pcg:.3e} (10x JAX's own)")
+    check(bool(torch.isfinite(r0["p"]).all() and torch.isfinite(r0["q"]).all()),
+          "the sharded batch trajectory is not finite")
+    check(d_p <= tol_p and d_q <= tol_q,
+          f"optimize_batch_sharded vs optimize_batch: max |dp| {d_p:.3e} m (tol {tol_p:.3e}), "
+          f"|dq| {d_q:.3e} (tol {tol_q:.3e})")
+    check(d_jax <= BATCH_F64_TOL_M, f"optimize_batch_sharded vs JAX f64: {d_jax:.3e} m > "
+                                    f"{BATCH_F64_TOL_M} m")
+
+
+# --- phase 19: the small public functions on the card --------------------------------------
+
+def item9_phase(dev):
+    """19: ``testing.item9_cases`` on the card against the CPU, same inputs."""
+    t0 = time.perf_counter()
+    gpu = testing.item9_cases(dev)
+    cpu = testing.item9_cases(torch.device("cpu"))
+    worst = []
+    for name, (got, secs, where) in gpu.items():
+        want = cpu[name][0]
+        check(where == "cuda", f"{name} ran on {where}, not on the card")
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{name}: shape {tuple(got.shape)} or not finite")
+        d = float((got - want).abs().max() / max(float(want.abs().max()), 1.0))
+        check(d <= ITEM9_RTOL, f"{name} on the card vs the CPU: {d:.3e} > {ITEM9_RTOL}")
+        worst.append((d, name))
+    d, name = max(worst)
+    print(f"small functions: {len(gpu)} on the card, each within {ITEM9_RTOL} of its CPU result "
+          f"(largest {d:.3e}, {name}; relative to max(1, max |x|)); "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 # --- phase 16: the batch variants -----------------------------------------------------
@@ -2143,7 +2275,7 @@ def main():
     knn_kern, copy_kern = kernel_phase(dev)
     launches = replay_phase(dev)
     copy_launches = probe_phase()
-    batch_phase(dev)
+    batch_ctx = batch_phase(dev)
     pipeline_phase(dev)
     pairs_kern, sms1_ctx = sms1_phase(dev)
     pairs_kern["max_abs_err"] = knn_kern.pop("max_abs_err_pairs")
@@ -2170,6 +2302,12 @@ def main():
     print(f"phases 15.6-17 (carrier phase, batch variants, level-1 solvers): "
           f"{t_end - t16 + carrier_s:.0f} s ({carrier_s:.0f} + {t17 - t16:.0f} + "
           f"{t_end - t17:.0f})")
+    sharded_phase(dev, batch_ctx)
+    del batch_ctx
+    t19 = time.perf_counter()
+    item9_phase(dev)
+    print(f"phases 18-19 (multi-device, small functions): {time.perf_counter() - t_end:.0f} s "
+          f"({t19 - t_end:.0f} + {time.perf_counter() - t19:.0f})")
     knn_kern["launches_by_path"] = {"replay": launches, "backend_fusion": fusion_launches,
                                     "loop_closure": loop_launches, "odometry": odo_launches,
                                     "raw_input_replay": raw_launches,

@@ -1,0 +1,1 @@
+from . import pointcloud, skyplot, trajectory  # noqa: F401

@@ -1,9 +1,10 @@
-"""Trajectory I/O and metrics in the reference's formats (port of ``glio_tpu/eval/trajectory.py:19-76``).
+"""Trajectory I/O and metrics in the reference's formats (port of ``glio_tpu/eval/trajectory.py``).
 
 * CSV rows ``t, gps_week, gps_tow, lat, lon, alt, yaw, pitch, roll, E, N, U``
   as ``Estimator.cpp:4860-4881`` writes ``tc_sw_result.csv`` (and
   :3337-3395 the batch result);
-* ATE / RPE with optional nearest-time association.
+* ATE / RPE with optional nearest-time association;
+* a KML LineString of a trajectory (``write_kml``).
 
 Host numpy, copied from the JAX package.
 """
@@ -73,3 +74,17 @@ def rpe(p_est, p_ref, delta: int = 10):
     d_ref = p_ref[delta:] - p_ref[:-delta]
     e = np.linalg.norm(d_est - d_ref, axis=-1)
     return float(np.sqrt(np.mean(e ** 2))), e
+
+
+def write_kml(path: str, llh, name="glio_tpu trajectory"):
+    """Minimal KML LineString export (nlosExclusion tooling parity)."""
+    coords = " ".join(
+        f"{np.rad2deg(l[1]):.9f},{np.rad2deg(l[0]):.9f},{l[2]:.3f}"
+        for l in np.asarray(llh))
+    with open(path, "w") as f:
+        f.write(
+            '<?xml version="1.0" encoding="UTF-8"?>\n'
+            '<kml xmlns="http://www.opengis.net/kml/2.2"><Document>'
+            f'<name>{name}</name><Placemark><LineString><coordinates>'
+            f'{coords}</coordinates></LineString></Placemark>'
+            '</Document></kml>\n')

@@ -17,6 +17,7 @@ from ..solver.linalg import cholesky_or_nan
 from ..utils import quat, so3
 
 STATE_DIM = 15  # δp(3) δθ(3) δv(3) δba(3) δbg(3)
+NOISE_DIM = 18  # acc_n(i), gyr_n(i), acc_n(j), gyr_n(j), acc_w, gyr_w
 O_P, O_R, O_V, O_BA, O_BG = 0, 3, 6, 9, 12
 F64 = torch.float64
 
@@ -178,6 +179,12 @@ def sqrt_info(pre: Preintegrated):
     L = cholesky_or_nan(pre.covariance.to(F64))
     eye = torch.eye(STATE_DIM, dtype=F64, device=L.device).expand_as(L)
     return torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+def whitened_residual(pre: Preintegrated, *state_ij, gravity):
+    """sqrt_info(pre) · residual: the whitening computed at every call (the
+    window's solve takes ``whitened_residual_cached``)."""
+    return _matvec(sqrt_info(pre), residual(pre, *state_ij, gravity=gravity))
 
 
 def whitened_residual_cached(S, pre: Preintegrated, *state_ij, gravity):

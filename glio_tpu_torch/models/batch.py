@@ -1,5 +1,4 @@
-"""Batch (global) fusion, levels 0 and 1 (port of ``glio_tpu/models/batch.py`` but for
-``optimize_batch_sharded``, :780-862).
+"""Batch (global) fusion, levels 0 and 1 (port of ``glio_tpu/models/batch.py``).
 
 The stage that writes ``tc_batch_result.csv``: the whole sliding-window
 trajectory is re-solved against the GNSS double differences
@@ -41,8 +40,8 @@ one more state per keyframe (7×7 blocks); ``optimize_batch_reference_cadence``
 re-solves the growing prefix every 10 keyframes as the reference's
 backendFusionThread does, and ``optimize_batch_incremental`` every ``every``
 keyframes with the relatives re-derived from the corrected trajectory; both
-keep one problem shape and mask the prefix. Not ported yet: the sharded
-variant.
+keep one problem shape and mask the prefix. ``optimize_batch_sharded`` runs the
+level-0 solve over the ranks of a ``torch.distributed`` process group.
 """
 
 import time
@@ -689,6 +688,14 @@ def solve_batch_once(cfg, prob: BatchProblem, p0, q0, threshold,
     here waits on the host. Returns (p, q, unweighted cost) as tensors.
     """
     _check_supported(cfg, solver)
+    return _lm_stage(cfg, prob, p0, q0, threshold, lm_iters, robust, plan,
+                     lambda band, grad: _solve_step(band, grad, solver, pcg_iters))
+
+
+def _lm_stage(cfg, prob: BatchProblem, p0, q0, threshold, lm_iters: int,
+              robust: RobustOpts, plan: AssemblyPlan, step):
+    """``lm_iters`` damped Gauss-Newton iterations whose steps ``step(band,
+    grad)`` solves (``solve_batch_once``, ``optimize_batch_sharded``)."""
     hw = cfg.estimator.search_range + 1
     use_doppler = cfg.estimator.doppler_in_batch
     if plan is None:
@@ -699,7 +706,7 @@ def solve_batch_once(cfg, prob: BatchProblem, p0, q0, threshold,
         band, grad, cost_cur, w_rel, w_dd = _assemble_core_impl(
             p, q, prob, threshold, hw, robust=robust, plan=plan, use_doppler=use_doppler)
         _damp(band, lam, hw)
-        p_new, q_new = _retract(p, q, _solve_step(band, grad, solver, pcg_iters).reshape(-1))
+        p_new, q_new = _retract(p, q, step(band, grad).reshape(-1))
         new_cost = _total_cost(p_new, q_new, prob, threshold, w_rel, w_dd, use_doppler)
         better = new_cost < cost_cur
         p = torch.where(better, p_new, p)
@@ -729,6 +736,36 @@ def optimize_batch(cfg, prob: BatchProblem, thresholds=(1e9, 10.0, 8.0, 6.0),
     for th, iters in zip(thresholds, lm_iters):
         p, q, cost = solve_batch_once(cfg, prob, p, q, th, iters, pcg_iters,
                                       solver, robust, plan)
+        costs.append(float(cost))
+    return p, q, costs
+
+
+def optimize_batch_sharded(cfg, prob: BatchProblem, group=None,
+                           thresholds=(1e9, 10.0, 8.0, 6.0), lm_iters: int = 10,
+                           robust: RobustOpts = NO_ROBUST):
+    """The annealed batch solve over the ranks of a process group (``group``;
+    None: the default group; or a ``parallel.Comm``, which then counts the
+    solve's collectives), each LM step solved exactly by the SPIKE-
+    partitioned cyclic reduction (``parallel.spike_cr``). Every rank of the
+    group calls it with the same problem and gets the same result.
+
+    Each iteration is ``solve_batch_once``'s in f64 with the sharded solve in
+    place of ``cyclic_reduction_solve``, so the trajectory equals
+    ``optimize_batch(solver="direct")``'s to round-off. Where the JAX package
+    shards the assembly along time (GSPMD), every rank here assembles the
+    whole band: the same numbers, without the saving. Returns (p, q,
+    per-stage costs) like ``optimize_batch``.
+    """
+    from ..parallel.spike_cr import make_sharded_cr_solve
+    _check_supported(cfg, "direct")
+    hw = cfg.estimator.search_range + 1
+    solve = make_sharded_cr_solve(group, hw)
+    plan = assembly_plan(prob, hw, cfg.estimator.doppler_in_batch)
+    p, q = prob.p_odo, prob.q_odo
+    costs = []
+    for th in thresholds:
+        p, q, cost = _lm_stage(cfg, prob, p, q, th, lm_iters, robust, plan,
+                               lambda band, grad: solve(band, -grad))
         costs.append(float(cost))
     return p, q, costs
 

@@ -1,4 +1,4 @@
-"""Schur-complement marginalization prior (port of ``glio_tpu/solver/marginalization.py:49-156``).
+"""Schur-complement marginalization prior (port of ``glio_tpu/solver/marginalization.py``).
 
 The exact branch of the JAX function (``mixed_chol=False``): the dropped
 block is eliminated with an eigen-clipped pseudo-inverse
@@ -6,7 +6,9 @@ block is eliminated with an eigen-clipped pseudo-inverse
 by a Cholesky of A + EPS·I. Where that factor is not finite, the eigen
 square root of the JAX package's fallback replaces it, selected on the
 device. On the PSD systems of the window, the JAX main path's Tikhonov
-elimination equals this branch to EPS-relative.
+elimination equals this branch to EPS-relative. ``identity_prior`` and
+``prior_residual`` are the JAX package's helpers around the prior; the window
+keeps its prior in its carry and does not call them.
 """
 
 from typing import NamedTuple
@@ -23,6 +25,21 @@ class MarginalPrior(NamedTuple):
     """residual(x) = sqrt_res + sqrt_jac @ local(x, x0) over the kept block."""
     sqrt_jac: torch.Tensor   # (n_keep, n_keep)
     sqrt_res: torch.Tensor   # (n_keep,)
+    valid: torch.Tensor      # () bool, False until the first marginalization
+
+
+def identity_prior(n_keep: int, dtype=torch.float64, device=None) -> MarginalPrior:
+    """The prior before any marginalization: zero, and not valid."""
+    return MarginalPrior(sqrt_jac=torch.zeros((n_keep, n_keep), dtype=dtype, device=device),
+                         sqrt_res=torch.zeros((n_keep,), dtype=dtype, device=device),
+                         valid=torch.zeros((), dtype=torch.bool, device=device))
+
+
+def prior_residual(prior: MarginalPrior, local_dx):
+    """Whitened prior residual at the tangent offset ``local_dx`` from the
+    linearization point; zero while the prior is not valid."""
+    r = prior.sqrt_res + prior.sqrt_jac @ local_dx
+    return torch.where(prior.valid, r, torch.zeros_like(r))
 
 
 def _clipped_inverse(A):
@@ -63,4 +80,5 @@ def marginalize(H, b, n_drop: int) -> MarginalPrior:
     re = torch.where(ok, 1.0 / s, torch.zeros_like(s)) * (V.T @ g)
     bad = ~(torch.isfinite(S).all() & torch.isfinite(r0).all())
     return MarginalPrior(sqrt_jac=torch.where(bad, Se, S),
-                         sqrt_res=torch.where(bad, re, r0))
+                         sqrt_res=torch.where(bad, re, r0),
+                         valid=torch.ones((), dtype=torch.bool, device=H.device))

@@ -774,3 +774,305 @@ def gnss_fields_digest(g) -> dict:
         else:
             out[f.name] = [float(a.sum()), float((a * a).sum())]
     return out
+
+
+# --- the multi-device batch solve: ranks of ``parallel.launch.run_ranks`` ---------------
+
+ANCHOR_ECEF = np.array([-2419233.42, 5385473.13, 2405341.30])
+STATION_ECEF = np.array([-2414266.92, 5386768.987, 2407460.031])
+# tests/test_parallel.py::test_optimize_batch_sharded_matches_single_device's drive
+SHARDED_DRIVE = dict(n_keyframes=96, seed=5, psr_noise=0.5, epoch_stride=2, odo_noise=0.4,
+                     thresholds=(1e9, 8.0), lm_iters=4, dd_huber=1.0, epoch_gate=2.0,
+                     rel_huber=5.0)
+
+
+def sharded_drive(sc, simulate_gnss_epochs):
+    """(kf_time, p_true, q_true, gnss, p_odo) of ``SHARDED_DRIVE``: a 20 m/s
+    S-curve at 3 Hz, GNSS every ``epoch_stride`` keyframes and white
+    odometry noise, from the caller's simulator (the JAX package's or the
+    port's)."""
+    T = sc["n_keyframes"]
+    kf_time = np.arange(T) / 3.0
+    t = np.linspace(0, 2, T)
+    p_true = np.stack([20 * t, 5 * np.sin(t), np.zeros_like(t)], -1)
+    q_true = np.tile([1.0, 0, 0, 0], (T, 1))
+    gnss = simulate_gnss_epochs(p_true, kf_time, ANCHOR_ECEF, STATION_ECEF,
+                                psr_noise=sc["psr_noise"], epoch_stride=sc["epoch_stride"],
+                                seed=sc["seed"])
+    p_odo = p_true + sc["odo_noise"] * np.random.default_rng(sc["seed"]).normal(size=p_true.shape)
+    return kf_time, p_true, q_true, gnss, p_odo
+
+
+def robust_opts(batch_mod, sc):
+    return batch_mod.RobustOpts(dd_huber=sc["dd_huber"], epoch_gate=sc["epoch_gate"],
+                                rel_huber=sc["rel_huber"])
+
+
+def damped_band(batch_mod, prob, p, q, threshold, hw, robust, lam=1e-4):
+    """The band and gradient of an LM iteration of the level-0 batch at (p,
+    q), damped by ``lam`` as ``solve_batch_once`` damps them."""
+    band, grad, *_ = batch_mod._assemble_core_impl(p, q, prob, threshold, hw, robust=robust)
+    batch_mod._damp(band, lam, hw)
+    return band, grad
+
+
+def pad_time(band, b, sp):
+    """(NB, T, ...) band and rhs padded along T to a multiple of ``sp`` with
+    identity diagonal blocks and zero rhs rows, as ``make_sharded_pcg`` asks."""
+    pad = -band.shape[1] % sp
+    if not pad:
+        return band, b
+    D, hw = band.shape[-1], (band.shape[2] - 1) // 2
+    tail = torch.zeros(band.shape[:1] + (pad,) + band.shape[2:], dtype=band.dtype,
+                       device=band.device)
+    tail[:, :, hw] = torch.eye(D, dtype=band.dtype, device=band.device)
+    zero = torch.zeros(b.shape[:1] + (pad, D), dtype=b.dtype, device=b.device)
+    return torch.cat([band, tail], 1), torch.cat([b, zero], 1)
+
+
+def parallel_cases(rank, world_size, device, cases):
+    """Every CPU parity case of ``tests/test_torch_parallel.py`` in one set of
+    ranks: the sharded CR solve on each (band, b, hw) of ``cases["cr"]``, the
+    halo matvec on each of ``cases["halo"]`` over all ranks, the sharded PCG at
+    dp = 2, sp = 2 (``"pcg"``) and at sp = 1 (``"pcg_sp1"``), the uneven-shard
+    error (``"uneven"``) and ``optimize_batch_sharded`` on ``sharded_drive``;
+    and the JAX modules the rank has imported (``"jax_modules"``: none)."""
+    from .config import GlioConfig
+    from .data.simulator import simulate_gnss_epochs
+    from .models import batch as batch_mod
+    from .parallel import Comm, banded_pcg, spike_cr
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    out = {"cr": [spike_cr.make_sharded_cr_solve(None, hw)(t(band), t(b))
+                  for band, b, hw in cases["cr"]]}
+    comm = Comm()
+    out["halo"] = []
+    for band, x, hw in cases["halo"]:
+        cols = slice(rank * (x.shape[1] // world_size), (rank + 1) * (x.shape[1] // world_size))
+        y = banded_pcg._halo_matvec(t(band[:, cols]), t(x[:, cols]), hw, comm)
+        out["halo"].append(torch.cat(comm.all_gather(y), dim=1))
+    for key, dp in (("pcg", 2), ("pcg_sp1", world_size)):
+        band, b, hw, iters = cases[key]
+        out[key] = banded_pcg.make_sharded_pcg(None, hw, iters, dp=dp)(t(band), t(b))
+    band, b, hw, iters = cases["uneven"]
+    try:
+        banded_pcg.make_sharded_pcg(None, hw, iters, dp=2)(t(band), t(b))
+        out["uneven"] = None
+    except ValueError as e:
+        out["uneven"] = str(e)
+    sc = cases["batch"]
+    kf_time, _, q_true, gnss, p_odo = sharded_drive(sc, simulate_gnss_epochs)
+    cfg = GlioConfig()
+    prob = batch_mod.build_problem(cfg, p_odo, q_true, kf_time, gnss, ANCHOR_ECEF, 0.0,
+                                   STATION_ECEF, device=device)
+    out["batch"] = batch_mod.optimize_batch_sharded(
+        cfg, prob, None, thresholds=sc["thresholds"], lm_iters=sc["lm_iters"],
+        robust=robust_opts(batch_mod, sc))
+    import sys
+    out["jax_modules"] = sorted(m for m in sys.modules
+                                if m == "jax" or m.startswith(("jax.", "glio_tpu.")))
+    return out
+
+
+def failing_rank(rank, world_size, device, bad_rank):
+    """Rank ``bad_rank`` raises before the first collective; the others wait in it."""
+    from .parallel import Comm
+    if rank == bad_rank:
+        raise RuntimeError(f"rank {rank} fails on purpose")
+    return Comm().all_gather(torch.ones(1, device=device))
+
+
+def batch_drive_problem(sc, cfg, device):
+    """The batch fixture's problem (``tests/data/batch_T3493_seed4.npz``'s
+    scenario ``sc``) built by the port on ``device``: (problem, p_true,
+    p_odo, host seconds to simulate, seconds to build, closed by a sync)."""
+    import time
+    from .data.simulator import drifted_trajectory, simulate_gnss_epochs
+    from .models import batch as batch_mod
+    anchor = np.asarray(cfg.initialization.anc_ecef)
+    station = np.asarray(cfg.initialization.station_ecef)
+    t0 = time.perf_counter()
+    kf_time, p_true, q_true, p_odo = drifted_trajectory(sc["n_keyframes"], sc["max_drift"])
+    gnss = simulate_gnss_epochs(p_true, kf_time, anchor, station, psr_noise=sc["psr_noise"],
+                                epoch_stride=sc["epoch_stride"], seed=sc["seed"])
+    t1 = time.perf_counter()
+    prob = batch_mod.build_problem(cfg, p_odo, q_true, kf_time, gnss, anchor, 0.0, station,
+                                   device=device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return prob, p_true, p_odo, t1 - t0, time.perf_counter() - t1
+
+
+def sharded_batch_bands(batch_mod, cfg, prob, sc, at_solution, at_jax, lam=1e-4):
+    """The bands of the multi-device phase, each damped by ``lam`` as an LM
+    iteration damps it: (band, rhs) at ``at_solution`` (p, q) with the last
+    threshold, for the sharded direct solve; and the two bands of the sharded
+    PCG (at the odometry with the first threshold, at ``at_jax`` with the
+    last) stacked and padded to an even T."""
+    hw = cfg.estimator.search_range + 1
+    robust = robust_opts(batch_mod, sc)
+    th = sc["thresholds"]
+    band, grad = damped_band(batch_mod, prob, *at_solution, th[-1], hw, robust, lam)
+    pair = [damped_band(batch_mod, prob, prob.p_odo, prob.q_odo, th[0], hw, robust, lam),
+            damped_band(batch_mod, prob, *at_jax, th[-1], hw, robust, lam)]
+    band2, b2 = pad_time(torch.stack([b for b, _ in pair]), -torch.stack([g for _, g in pair]), 2)
+    return (band, -grad), (band2, b2)
+
+
+def sharded_batch_rank(rank, world_size, device, spec):
+    """One rank of ``chip_smoke.py``'s multi-device phase: the batch drive's
+    problem built on ``device``, then the sharded direct solve of its band at
+    the single-device solution, the sharded PCG (dp = 2, sp = 2) of the two
+    bands of ``sharded_batch_bands`` and ``optimize_batch_sharded``, each
+    timed (host clock, closed by a synchronize) with its collectives' count,
+    bytes and seconds."""
+    import time
+    t_ready = time.time()
+    from .config import GlioConfig
+    from .models import batch as batch_mod
+    from .parallel import Comm, banded_pcg, spike_cr
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    sc = spec["scenario"]
+    cfg = GlioConfig()
+    hw = cfg.estimator.search_range + 1
+    t0 = time.perf_counter()
+    prob = batch_drive_problem(sc, cfg, device)[0]
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    (band, rhs), (band2, b2) = sharded_batch_bands(
+        batch_mod, cfg, prob, sc, (t(spec["p_solution"]), t(spec["q_solution"])),
+        (t(spec["p_jax"]), t(spec["q_jax"])))
+    sync()
+    out = {"t_ready": t_ready, "setup_s": time.perf_counter() - t0, "rank": rank}
+
+    def timed(name, fn, comm):
+        fn()                                        # warm-up
+        calls, nbytes, secs = comm.calls, comm.bytes, comm.seconds
+        sync()
+        t1 = time.perf_counter()
+        res = fn()
+        sync()
+        out[f"{name}_s"] = time.perf_counter() - t1
+        out[f"{name}_comm"] = (comm.calls - calls, comm.bytes - nbytes, comm.seconds - secs)
+        return res
+
+    cr = spike_cr.make_sharded_cr_solve(None, hw)
+    out["x_cr"] = timed("cr", lambda: cr(band, rhs), cr.comm)
+    pcg = banded_pcg.make_sharded_pcg(None, hw, spec["pcg_iters"], dp=2, sp=2)
+    out["x_pcg"], out["res_pcg"] = timed("pcg", lambda: pcg(band2, b2), pcg.comm)
+    out["pcg_sp_comm"] = (pcg.sp_comm.calls, pcg.sp_comm.bytes, pcg.sp_comm.seconds)
+    comm = Comm()
+    sync()
+    t1 = time.perf_counter()
+    p, q, costs = batch_mod.optimize_batch_sharded(
+        cfg, prob, comm, thresholds=sc["thresholds"], lm_iters=sc["lm_iters"],
+        robust=robust_opts(batch_mod, sc))
+    sync()
+    out["batch_s"] = time.perf_counter() - t1
+    out["batch_comm"] = (comm.calls, comm.bytes, comm.seconds)
+    out.update(p=p, q=q, costs=costs,
+               band_sums=torch.stack([band.sum(), (band * band).sum(), band2.sum()]))
+    if rank:       # every rank returns the same vectors; rank 0's are kept
+        del out["x_cr"], out["x_pcg"]
+    return out
+
+
+def item9_cases(device):
+    """The small public functions off the pipeline's paths (``factors.lidar``'s
+    four rows, ``whitened_residual``, ``gn_solve`` / ``dogleg_solve``, the prior
+    helpers, SO(3), ``from_rotmat`` / ``g2q``, ``gpst2unix`` / ``sat_azel``, the
+    npz checkpoint and the profiler's sync) on ``device``, on inputs made from
+    a numpy seed: {name: (result tensors on the CPU, seconds)}."""
+    import os
+    import tempfile
+    import time
+    from .factors import imu, lidar
+    from .solver import dense, marginalization
+    from .utils import checkpoint, coords, profiling, quat, so3
+    rng = np.random.default_rng(19)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=device)
+
+    def unit(n, d=4):
+        x = rng.normal(size=(n, d))
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+    N = 4096
+    pts, nrm = rng.normal(size=(N, 3)) * 20, unit(N, 3)
+    q1, q2 = unit(1)[0], unit(1)[0]
+    mask = torch.as_tensor(rng.random(N) > 0.2, device=device)
+    th = unit(256, 3) * rng.uniform(0.0, 3.1, size=(256, 1))
+    th[0] = 0.0
+    th[1] = unit(1, 3)[0] * (np.pi - 1e-7)
+    R = so3.exp(t(th))
+    qa, qb = unit(N), unit(N)
+    pre = imu.preintegrate(t(rng.normal(size=(40, 3)) + [0, 0, 9.8]),
+                           t(rng.normal(size=(40, 3)) * 0.1), t(np.full(40, 0.005)),
+                           torch.ones(40, dtype=torch.bool, device=device), t(np.zeros(3)),
+                           t(np.zeros(3)), t([0, 0, 9.8]), t(np.zeros(3)),
+                           imu.ImuParams().noise_cov().to(device))
+    state = [t(rng.normal(size=3)), t(unit(1)[0]), t(rng.normal(size=3)), t(np.zeros(3)),
+             t(np.zeros(3)), t(rng.normal(size=3)), t(unit(1)[0]), t(rng.normal(size=3)),
+             t(np.zeros(3)), t(np.zeros(3))]
+    J = rng.normal(size=(30, 12))
+    prior = marginalization.marginalize(t(J.T @ J), t(J.T @ rng.normal(size=30)), 6)
+    rcv = t([-2414266.92, 5386768.987, 2407460.031])
+    sats = t(rng.normal(size=(64, 3)) * 1.5e7) + 4.0 * rcv
+
+    def rosen(x):
+        return torch.stack([10.0 * (x[1] - x[0] ** 2), 1.0 - x[0]])
+
+    def ckpt():
+        with tempfile.TemporaryDirectory() as d:
+            tree = {"R": R, "pre": pre}
+            checkpoint.save_pytree(os.path.join(d, "c.npz"), tree)
+            return checkpoint._leaves(checkpoint.load_pytree(os.path.join(d, "c.npz"), tree))
+
+    def profiled():
+        prof = profiling.Profiler()
+        return prof.time_fn("so3_log", so3.log, R)
+
+    x0 = t([-1.2, 1.0])
+    cases = {
+        "plane_incre_residual": lambda: lidar.plane_incre_residual(
+            t(pts), t(nrm), t(rng.normal(size=N)), t([1.0, 2.0, 3.0]), t(q1), mask),
+        "edge_residual": lambda: lidar.edge_residual(
+            t(pts), t(pts + 1.0), t(pts - [2.0, 0, 1.0]), t(np.ones(N)), t([1.0, 2.0, 3.0]),
+            t(q1), t(q2), t([0.1, 0.0, 0.2]), mask),
+        "relative_attitude_residual": lambda: lidar.relative_attitude_residual(
+            t(qa), t(qb), t(unit(N)), t(np.full(N, 1e4)), mask),
+        "roll_pitch_residual": lambda: lidar.roll_pitch_residual(t(qa), t(unit(N, 3))),
+        "whitened_residual": lambda: imu.whitened_residual(pre, *state,
+                                                           gravity=t([0, 0, 9.8])),
+        "gn_solve": lambda: dense.gn_solve(rosen, lambda x, d: x + d, x0, 2, max_iters=20).x,
+        "dogleg_solve": lambda: dense.dogleg_solve(rosen, lambda x, d: x + d, x0, 2,
+                                                   max_iters=60).x,
+        "prior_residual": lambda: torch.cat([
+            marginalization.prior_residual(prior, t(np.ones(6))),
+            marginalization.prior_residual(marginalization.identity_prior(6, device=device),
+                                           t(np.ones(6)))]),
+        "so3_vee_exp": lambda: torch.cat([so3.vee(R).reshape(-1), R.reshape(-1)]),
+        "so3_log": lambda: so3.log(R),
+        "so3_jacobians": lambda: torch.stack([so3.left_jacobian(t(th)),
+                                              so3.right_jacobian(t(th)),
+                                              so3.inv_right_jacobian(t(th * 0.5))]),
+        "from_rotmat": lambda: quat.from_rotmat(R),
+        "g2q": lambda: quat.g2q(t(rng.normal(size=(64, 3)) * 0.5 + [0, 0, 9.7])),
+        "gpst2unix": lambda: coords.gpst2unix(t([2158.0, 2200.0]), t([455342.266, 1.5])),
+        "sat_azel": lambda: torch.stack(coords.sat_azel(rcv, sats)),
+        "checkpoint": lambda: torch.cat([x.reshape(-1).to(torch.float64) for x in ckpt()]),
+        "profiler": profiled,
+    }
+    out = {}
+    for name, fn in cases.items():
+        t0 = time.perf_counter()
+        res = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        out[name] = (res.detach().cpu(), time.perf_counter() - t0, res.device.type)
+    return out

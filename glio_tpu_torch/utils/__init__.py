@@ -1,0 +1,1 @@
+from . import checkpoint, coords, profiling, quat, so3  # noqa: F401

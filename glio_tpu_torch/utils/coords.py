@@ -76,6 +76,20 @@ def enu2ecef(enu, ref_ecef):
     return ref_ecef + torch.einsum("...ji,...j->...i", R, enu)
 
 
+def gpst2unix(week, tow):
+    """GPS week + seconds of week → unix seconds on the GPS timescale (no
+    leap seconds), as ``gpst2time`` + ``time2sec``; numbers, arrays or tensors."""
+    return GPS_UNIX_EPOCH + week * GPS_SECS_PER_WEEK + tow
+
+
+def sat_azel(rcv_ecef, sat_ecef):
+    """Azimuth and elevation (rad) of satellites (..., 3) seen from the
+    receiver ``rcv_ecef`` (broadcast to their shape), both ECEF."""
+    enu = ecef2enu(sat_ecef, rcv_ecef.expand(sat_ecef.shape))
+    e, n, u = enu.unbind(-1)
+    return torch.atan2(e, n), torch.atan2(u, torch.sqrt(e * e + n * n))
+
+
 def unix2gpst(t):
     """Unix seconds (GPS timescale) → (week, tow), numpy (``time2gpst``)."""
     dt = np.asarray(t, float) - GPS_UNIX_EPOCH

@@ -65,6 +65,27 @@ def to_rotmat(q):
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def from_rotmat(R):
+    """3×3 rotation matrix → quaternion without branches (Shepperd's method):
+    the four candidates, each scaled by 4·component², and the one of the
+    largest diagonal combination taken."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1 - m00 + m11 - m22, m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1 - m00 - m11 + m22], dim=-1)
+    scores = torch.stack([1 + tr, 1 + m00 - m11 - m22, 1 - m00 + m11 - m22,
+                          1 - m00 - m11 + m22], dim=-1)
+    idx = torch.argmax(scores, dim=-1)
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)           # (..., 4 candidates, 4)
+    q = torch.take_along_dim(cands, idx[..., None, None].expand(idx.shape + (1, 4)),
+                             dim=-2)[..., 0, :]
+    return positive_hemisphere(normalize(q))
+
+
 def delta_q(theta):
     """First-order small-angle quaternion [1, θ/2], normalized (``deltaQ``)."""
     half = 0.5 * theta
@@ -153,6 +174,22 @@ def to_ypr(q):
     p = torch.atan2(-R[..., 2, 0], torch.sqrt(R[..., 2, 1] ** 2 + R[..., 2, 2] ** 2))
     r = torch.atan2(R[..., 2, 1], R[..., 2, 2])
     return torch.stack([y, p, r], dim=-1)
+
+
+def g2q(g):
+    """Gravity-aligning rotation of zero yaw (``Utility::g2R``): R(q) ĝ = ẑ."""
+    ng1 = g / norm(g, keepdim=True)
+    ng2 = torch.zeros_like(ng1)
+    ng2[..., 2] = 1.0
+    axis = cross(ng1, ng2)
+    s = norm(axis, keepdim=True)
+    c = torch.sum(ng1 * ng2, dim=-1, keepdim=True)
+    angle = torch.atan2(s, c)
+    axis = axis / torch.where(s < 1e-12, torch.ones_like(s), s)
+    q0 = exp(angle * axis)
+    yaw = to_ypr(q0)[..., 0:1]
+    zero = torch.zeros_like(yaw)
+    return mul(from_ypr(torch.cat([-yaw, zero, zero], dim=-1)), q0)
 
 
 def slerp(q0, q1, t):
