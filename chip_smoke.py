@@ -180,11 +180,16 @@ Phases, each of which raises on failure:
     super-rows, 125 a rank) within 1e-8 of max |x| of the single-device
     ``cyclic_reduction_solve``; ``make_sharded_pcg`` at dp = 2, sp = 2, 60
     iterations, on two level-0 bands against ``pcg_solve`` within 10x JAX's
-    own sharded-against-single distance; ``optimize_batch_sharded`` on the
-    batch drive against this run's ``optimize_batch(solver="direct")``
-    within 10x JAX's own distance or its 1e-9 m nudge spread, the larger,
-    and against JAX f64 within 3e-4 m; the
-    seconds of the ranks' start-up, of each solve and of its collectives;
+    own sharded-against-single distance; ``optimize_batch_sharded``, each
+    rank holding only its slice of the problem and assembling only its own
+    rows, on the batch drive: each rank's rows of its first assembly within
+    1e-12 of the largest entry of this process's whole band, the partial
+    costs summed within 1e-12 of its cost, the trajectory against this
+    run's ``optimize_batch(solver="direct")`` within 10x JAX's own distance
+    or its 1e-9 m nudge spread, the larger, and against JAX f64 within
+    3e-4 m; the seconds of the ranks' start-up, of each solve and of its
+    collectives, and each rank's rows, slice, assembly ms against the whole
+    band's in the same run, and peak device memory;
 19. each small public function off the pipeline's paths
     (``testing.item9_cases``) on the card against its CPU result in this
     run, at f64 round-off.
@@ -266,6 +271,8 @@ SMS1_SOLVERS_FIXTURE = os.path.join(ROOT, "tests", "data", "batch_variants_sms1_
 PARALLEL_FIXTURE = os.path.join(ROOT, "tests", "data", "parallel_T3493_seed4.npz")
 SHARDED_RANKS = 4             # ranks of the multi-device phase, all on cuda:0
 SPIKE_RTOL = 1e-8             # sharded direct solve vs single (dryrun_multichip's gate)
+SHARD_ROWS_RTOL = 1e-12       # a rank's assembled rows vs the whole band's, of its largest entry
+ASSEMBLY_REPS = 10            # calls a rank times of each assembly in phase 18
 ITEM9_RTOL = 1e-12            # a small function on the card vs the CPU, of max(1, max |x|)
 SPP_TOL_M = 1e-6              # SPP fixes, Doppler velocities (m/s) against JAX's
 GNSS_SUM_RTOL = 1e-12         # checksums of converted epochs and problems (round-off)
@@ -1991,22 +1998,40 @@ def sharded_phase(dev, ctx):
           and psc["ranks"] == SHARDED_RANKS and psc["pcg_layout"] == [2, 2],
           "the parallel fixture was made for another scenario")
     spec = dict(scenario=sc, p_solution=ctx["p"].cpu().numpy(), q_solution=ctx["q"].cpu().numpy(),
-                p_jax=fx["p_f64"], q_jax=fx["q_f64"], pcg_iters=psc["pcg_iters"])
+                p_jax=fx["p_f64"], q_jax=fx["q_f64"], pcg_iters=psc["pcg_iters"],
+                assembly_reps=ASSEMBLY_REPS)
     t_launch = time.time()
     t0 = time.perf_counter()
     ranks = run_ranks(testing.sharded_batch_rank, SHARDED_RANKS, dev, args=(spec,))
     wall_s = time.perf_counter() - t0
     r0 = ranks[0]
-    # The references, on the same bands (each rank's sums equal this process's).
+    # The references, on the same bands.
     (band, rhs), (band2, b2) = testing.sharded_batch_bands(
         batch_mod, cfg, prob, sc, (ctx["p"], ctx["q"]),
         (torch.as_tensor(fx["p_f64"], device=dev), torch.as_tensor(fx["q_f64"], device=dev)))
-    sums = torch.stack([band.sum(), (band * band).sum(), band2.sum()]).cpu()
     for r in ranks:
-        check(torch.allclose(r["band_sums"], sums, rtol=1e-12, atol=0),
-              f"rank {r['rank']} assembled other bands: {r['band_sums']} != {sums}")
         check(torch.equal(r["p"], r0["p"]) and torch.equal(r["q"], r0["q"]),
               f"rank {r['rank']} returned another trajectory than rank 0")
+    # Each rank's rows of the first assembly of (c) against this process's band.
+    band0, grad0, cost0, *_ = batch_mod._assemble_core_impl(
+        prob.p_odo, prob.q_odo, prob, sc["thresholds"][0], band.shape[1] // 2,
+        robust=testing.robust_opts(batch_mod, sc))
+    band0, grad0, cost0 = band0.cpu(), grad0.cpu(), float(cost0)
+    T = band0.shape[0]
+    rows_err, bit_equal, t_end, cost_sum = 0.0, True, 0, 0.0
+    for r in ranks:
+        t0, t1 = r["part"][3:]
+        b_l, g_l, c_l = r["rows"]
+        check(t0 == t_end and b_l.shape[0] == g_l.shape[0] == t1 - t0,
+              f"rank {r['rank']} assembled rows [{t0}, {t1}) ({b_l.shape[0]}), not from {t_end}")
+        t_end, cost_sum = t1, cost_sum + float(c_l)
+        if t1 > t0:
+            rows_err = max(rows_err,
+                           float((b_l - band0[t0:t1]).abs().max() / band0.abs().max()),
+                           float((g_l - grad0[t0:t1]).abs().max() / grad0.abs().max()))
+            bit_equal &= torch.equal(b_l, band0[t0:t1]) and torch.equal(g_l, grad0[t0:t1])
+    check(t_end == T, f"the ranks' rows end at {t_end}, not at T = {T}")
+    cost_err = abs(cost_sum - cost0) / abs(cost0)
     cr_single_s, x_ref = _sync_s(lambda: banded.cyclic_reduction_solve(band, rhs))
     x_ref = x_ref.cpu()
     rel_cr = float((r0["x_cr"] - x_ref).abs().max() / x_ref.abs().max())
@@ -2043,6 +2068,23 @@ def sharded_phase(dev, ctx):
           f"{1e3 * pcg_single_s:.1f} ms), {comm('pcg_comm')} over all ranks, "
           f"{r0['pcg_sp_comm'][0]} over each sp pair; vs pcg_solve {rel_pcg:.3e} of max |x| "
           f"(tol {tol_pcg:.3e}, 10x JAX's {float(px['pcg_rel']):.3e})")
+    def mb(nbytes):
+        return "not measured" if nbytes is None else f"{1e-6 * nbytes:.1f} MB"
+
+    print(f"multi-device (c) the ranks' first assembly (odometry, threshold "
+          f"{sc['thresholds'][0]:g}): rows vs this process's whole band {rows_err:.3e} of its "
+          f"largest entry ({'bit-equal' if bit_equal else 'not bit-equal'}; tol "
+          f"{SHARD_ROWS_RTOL}), partial costs summed in rank order {cost_err:.3e} relative")
+    for r in ranks:
+        t0, t1 = r["part"][3:]
+        print(f"multi-device (c) rank {r['rank']}: rows [{t0}, {t1}) of {T}, holds {r['held'][0]} "
+              f"of {r['whole'][0]} keyframes and {r['held'][1]} of {r['whole'][1]} epochs; "
+              f"assembly {r['local_ms']:.2f} ms an LM iteration (the whole band "
+              f"{r['whole_ms']:.2f} ms, the {SHARDED_RANKS} ranks at once, mean of "
+              f"{ASSEMBLY_REPS}); peak device memory in (c) {mb(r['batch_peak'])} "
+              f"({mb(r['batch_resident'])} resident before it; the whole problem and one "
+              f"whole-band assembly {mb(r['whole_peak'])}, this rank's rows "
+              f"{mb(r['local_peak'])}); {r['batch_comm'][0]} collectives")
     print(f"multi-device (c) optimize_batch_sharded (4 stages x {sc['lm_iters']} LM "
           f"iterations): {r0['batch_s']:.2f} s (single-device {ctx['solve_s']:.2f} s), "
           f"{comm('batch_comm')}; vs optimize_batch max |dp| {d_p:.3e} m, |dq| {d_q:.3e} "
@@ -2050,6 +2092,10 @@ def sharded_phase(dev, ctx):
           f"{float(px['d_p_sharded']):.3e} m, {float(px['d_q_sharded']):.3e} and its spread under "
           f"four 1e-9 m odometry nudges {float(px['nudge_p']):.3e} m, {float(px['nudge_q']):.3e}), vs JAX f64 "
           f"{d_jax:.3e} m (tol {BATCH_F64_TOL_M}); costs {r0['costs']}")
+    check(rows_err <= SHARD_ROWS_RTOL, f"a rank's assembled rows vs the whole band: {rows_err:.3e} "
+                                       f"of its largest entry > {SHARD_ROWS_RTOL}")
+    check(cost_err <= SHARD_ROWS_RTOL, f"the ranks' partial costs vs the whole cost: "
+                                       f"{cost_err:.3e} > {SHARD_ROWS_RTOL}")
     check(bool(torch.isfinite(r0["x_cr"]).all()) and tuple(r0["x_cr"].shape) == tuple(rhs.shape),
           "the sharded CR solve is not finite or has the wrong shape")
     check(rel_cr < SPIKE_RTOL, f"sharded CR solve vs cyclic_reduction_solve: {rel_cr:.3e} "

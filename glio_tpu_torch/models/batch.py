@@ -382,13 +382,24 @@ def _retract(p, q, dx):
     return p + d[:, :3], quat.normalize(quat.mul(q, quat.exp(d[:, 3:6])))
 
 
-def _total_cost(p, q, prob, threshold, w_rel=None, w_dd=None, use_doppler: bool = False):
-    r1 = _rel_residuals(p, q, prob, w_rel)
-    r2 = _dd_residuals(p, prob, threshold, w_dd)
-    c = 0.5 * (torch.sum(r1 * r1) + torch.sum(r2 * r2))
+def _half_sq(res, own=None):
+    """½ Σ res², each leading-axis row of ``res`` times its entry of ``own``
+    (a 0 / 1 mask of the factors a rank owns) where given."""
+    sq = res * res
+    if own is not None:
+        sq = sq * own.reshape(own.shape + (1,) * (res.dim() - 1))
+    return 0.5 * torch.sum(sq)
+
+
+def _total_cost(p, q, prob, threshold, w_rel=None, w_dd=None, use_doppler: bool = False,
+                own=None):
+    """The cost at (p, q); with ``own`` = (relative rows (T,), epochs (E,)),
+    the ownership masks of a rank-local problem, only the owned factors'."""
+    own_rel, own_ep = (None, None) if own is None else own
+    c = (_half_sq(_rel_residuals(p, q, prob, w_rel), own_rel)
+         + _half_sq(_dd_residuals(p, prob, threshold, w_dd), own_ep))
     if use_doppler:
-        r3 = _dopp_residuals(p, prob)
-        c = c + 0.5 * torch.sum(r3 * r3)
+        c = c + _half_sq(_dopp_residuals(p, prob), own_ep)
     return c
 
 
@@ -527,7 +538,8 @@ def _scatter_pair(band, grad, Ji, Jj, res, plans):
 
 def _assemble_core_impl(p, q, prob: BatchProblem, threshold, hw: int,
                         w_rel=None, w_dd=None, robust: RobustOpts = None,
-                        plan: AssemblyPlan = None, use_doppler: bool = False, z=None):
+                        plan: AssemblyPlan = None, use_doppler: bool = False, z=None,
+                        own=None):
     """Band and gradient by analytic per-factor Jacobians, plus the cost at
     (p, q) and the IRLS weights used.
 
@@ -535,9 +547,11 @@ def _assemble_core_impl(p, q, prob: BatchProblem, threshold, hw: int,
     with ``z`` (T,), the zenith biases of ``optimize_batch_atm``, D = 7 and
     the DD rows carry their z column (the Gauss-Markov rows are the
     caller's). With ``robust`` the weights are derived from the rows at (p,
-    q); otherwise ``w_rel`` / ``w_dd`` (default ones) are applied.
+    q); otherwise ``w_rel`` / ``w_dd`` (default ones) are applied. With
+    ``own`` (``_total_cost``'s masks) the cost counts only the owned factors.
     """
     T = p.shape[0]
+    own_rel, own_ep = (None, None) if own is None else own
     D = POSE_DOF + (z is not None)
     dev = p.device
     if plan is None or (use_doppler and plan.dopp is None):
@@ -583,7 +597,7 @@ def _assemble_core_impl(p, q, prob: BatchProblem, threshold, hw: int,
             wr = w_rel[:, r]
         mw = (mask * wr)[:, None, None]
         res = res_raw * wr[:, None]
-        cost = cost + 0.5 * torch.sum(res * res)
+        cost = cost + _half_sq(res, own_rel)
 
         JqjR = 0.5 * quat.qleft(MQ)[:, 1:, 1:]
         JqiR = -0.5 * (quat.qleft(Mq) @ quat.qright(Q))[:, 1:, 1:]
@@ -600,16 +614,17 @@ def _assemble_core_impl(p, q, prob: BatchProblem, threshold, hw: int,
     w_rel_all = torch.stack(w_rel_out, dim=1) if derive_w and w_rel_out else w_rel
 
     res, w_dd_rows = _scatter_dd(band, grad, p, prob, threshold, w_dd, robust, plan.dd, z)
-    cost = cost + 0.5 * torch.sum(res * res)
+    cost = cost + _half_sq(res, own_ep)
     w_dd_all = w_dd_rows.reshape(w_dd.shape) if derive_w else w_dd
     if use_doppler:
-        cost = cost + _scatter_dopp(band, grad, p, prob, plan.dopp)
+        cost = cost + _scatter_dopp(band, grad, p, prob, plan.dopp, own_ep)
     return band, grad, cost, w_rel_all, w_dd_all
 
 
-def _scatter_dopp(band, grad, p, prob: BatchProblem, plans):
+def _scatter_dopp(band, grad, p, prob: BatchProblem, plans, own_ep=None):
     """The Doppler rows into the translation corner of the 16 block
-    couplings of poses li−1 .. li+2 and their gradients; returns their cost."""
+    couplings of poses li−1 .. li+2 and their gradients; returns their cost
+    (the owned epochs' where ``own_ep`` is given)."""
     D = band.shape[-1]
     res, J4, _ = _dopp_row_jac(p, prob)                    # (E, M), (E, M, 4, 3)
     E = res.shape[0]
@@ -620,7 +635,7 @@ def _scatter_dopp(band, grad, p, prob: BatchProblem, plans):
     g = torch.zeros((4 * E, D), dtype=F64, device=p.device)
     g[:, :3] = torch.einsum("emai,em->aei", J4, res).reshape(4 * E, 3)
     banded.scatter_add_rows(grad, g, plans[1])
-    return 0.5 * torch.sum(res * res)
+    return _half_sq(res, own_ep)
 
 
 def _scatter_dd(band, grad, p, prob: BatchProblem, threshold, w_dd, robust, plans, z=None):
@@ -688,31 +703,40 @@ def solve_batch_once(cfg, prob: BatchProblem, p0, q0, threshold,
     here waits on the host. Returns (p, q, unweighted cost) as tensors.
     """
     _check_supported(cfg, solver)
-    return _lm_stage(cfg, prob, p0, q0, threshold, lm_iters, robust, plan,
-                     lambda band, grad: _solve_step(band, grad, solver, pcg_iters))
-
-
-def _lm_stage(cfg, prob: BatchProblem, p0, q0, threshold, lm_iters: int,
-              robust: RobustOpts, plan: AssemblyPlan, step):
-    """``lm_iters`` damped Gauss-Newton iterations whose steps ``step(band,
-    grad)`` solves (``solve_batch_once``, ``optimize_batch_sharded``)."""
     hw = cfg.estimator.search_range + 1
     use_doppler = cfg.estimator.doppler_in_batch
     if plan is None:
         plan = assembly_plan(prob, hw, use_doppler)
+    p, q = _lm_stage(
+        p0, q0, lm_iters, hw,
+        lambda p, q: _assemble_core_impl(p, q, prob, threshold, hw, robust=robust, plan=plan,
+                                         use_doppler=use_doppler),
+        lambda band, grad: _solve_step(band, grad, solver, pcg_iters),
+        lambda p, q, w_rel, w_dd: _total_cost(p, q, prob, threshold, w_rel, w_dd, use_doppler))
+    return p, q, _total_cost(p, q, prob, threshold, use_doppler=use_doppler)
+
+
+def _lm_stage(p0, q0, lm_iters: int, hw: int, assemble, step, trial_cost, agree=None):
+    """``lm_iters`` damped Gauss-Newton iterations (``solve_batch_once``,
+    ``optimize_batch_sharded``): ``assemble(p, q)`` → (band, grad, cost,
+    w_rel, w_dd), ``step(band, grad)`` → the step, ``trial_cost(p, q, w_rel,
+    w_dd)`` → the trial point's cost under the frozen weights, and, where
+    given, ``agree(cost, trial cost)`` → the two costs every rank compares.
+    Returns (p, q)."""
     p, q = p0, q0
     lam = torch.tensor(1e-4, dtype=F64, device=p0.device)
     for _ in range(lm_iters):
-        band, grad, cost_cur, w_rel, w_dd = _assemble_core_impl(
-            p, q, prob, threshold, hw, robust=robust, plan=plan, use_doppler=use_doppler)
+        band, grad, cost_cur, w_rel, w_dd = assemble(p, q)
         _damp(band, lam, hw)
         p_new, q_new = _retract(p, q, step(band, grad).reshape(-1))
-        new_cost = _total_cost(p_new, q_new, prob, threshold, w_rel, w_dd, use_doppler)
+        new_cost = trial_cost(p_new, q_new, w_rel, w_dd)
+        if agree is not None:
+            cost_cur, new_cost = agree(cost_cur, new_cost)
         better = new_cost < cost_cur
         p = torch.where(better, p_new, p)
         q = torch.where(better, q_new, q)
         lam = torch.clamp(torch.where(better, lam * 0.3, lam * 5.0), 1e-9, 1e6)
-    return p, q, _total_cost(p, q, prob, threshold, use_doppler=use_doppler)
+    return p, q
 
 
 def optimize_batch(cfg, prob: BatchProblem, thresholds=(1e9, 10.0, 8.0, 6.0),
@@ -742,31 +766,51 @@ def optimize_batch(cfg, prob: BatchProblem, thresholds=(1e9, 10.0, 8.0, 6.0),
 
 def optimize_batch_sharded(cfg, prob: BatchProblem, group=None,
                            thresholds=(1e9, 10.0, 8.0, 6.0), lm_iters: int = 10,
-                           robust: RobustOpts = NO_ROBUST):
+                           robust: RobustOpts = NO_ROBUST, device=None):
     """The annealed batch solve over the ranks of a process group (``group``;
     None: the default group; or a ``parallel.Comm``, which then counts the
     solve's collectives), each LM step solved exactly by the SPIKE-
     partitioned cyclic reduction (``parallel.spike_cr``). Every rank of the
     group calls it with the same problem and gets the same result.
 
-    Each iteration is ``solve_batch_once``'s in f64 with the sharded solve in
-    place of ``cyclic_reduction_solve``, so the trajectory equals
-    ``optimize_batch(solver="direct")``'s to round-off. Where the JAX package
-    shards the assembly along time (GSPMD), every rank here assembles the
-    whole band: the same numbers, without the saving. Returns (p, q,
-    per-stage costs) like ``optimize_batch``.
+    As the JAX package's time-sharded assembly, each rank holds on ``device``
+    (None: the problem's) only its slice of the problem, the keyframes it
+    owns and a halo, with the epochs that touch them (``parallel.assembly``),
+    and assembles only its own band rows, which go straight to the sharded
+    solve. The solution comes back whole to every rank, so p and q stay
+    whole. Each rank's cost counts only the factors it owns; the current and
+    trial costs are summed over the ranks in rank order by one all-gather an
+    iteration, so every rank takes the same accept decisions. Each iteration
+    is ``solve_batch_once``'s in f64 with the sharded solve in place of
+    ``cyclic_reduction_solve``, so the trajectory equals
+    ``optimize_batch(solver="direct")``'s to round-off. Any T (the JAX
+    function needs T divisible by the devices). Returns (p, q, per-stage
+    costs) like ``optimize_batch``.
     """
+    from ..parallel import Comm
+    from ..parallel.assembly import RankShare
     from ..parallel.spike_cr import make_sharded_cr_solve
     _check_supported(cfg, "direct")
     hw = cfg.estimator.search_range + 1
-    solve = make_sharded_cr_solve(group, hw)
-    plan = assembly_plan(prob, hw, cfg.estimator.doppler_in_batch)
-    p, q = prob.p_odo, prob.q_odo
+    T = prob.p_odo.shape[0]
+    device = prob.p_odo.device if device is None else torch.device(device)
+    comm = Comm.of(group)
+    solve = make_sharded_cr_solve(comm, hw)
+    share = RankShare(prob, hw, comm.rank, comm.size, cfg.estimator.doppler_in_batch, device)
+
+    def agree(cost, new_cost):
+        total = comm.sum_in_rank_order(torch.stack([cost, new_cost]))
+        return total[0], total[1]
+
+    p, q = prob.p_odo.to(device), prob.q_odo.to(device)
     costs = []
     for th in thresholds:
-        p, q, cost = _lm_stage(cfg, prob, p, q, th, lm_iters, robust, plan,
-                               lambda band, grad: solve(band, -grad))
-        costs.append(float(cost))
+        p, q = _lm_stage(p, q, lm_iters, hw,
+                         lambda p, q: share.assemble(p, q, th, robust),
+                         lambda band, grad: solve.rows(band, -grad, T),
+                         lambda p, q, w_rel, w_dd: share.cost(p, q, th, w_rel, w_dd),
+                         agree)
+        costs.append(float(comm.sum_in_rank_order(share.cost(p, q, th))))
     return p, q, costs
 
 

@@ -4,7 +4,9 @@
 partitioned block cyclic reduction), ``banded_pcg.make_sharded_pcg`` the
 block-Jacobi PCG over a ``dp × sp`` layout of ranks, and
 ``models.batch.optimize_batch_sharded`` the annealed robust LM solve whose
-every step the sharded CR solve takes. ``launch.run_ranks`` starts the ranks.
+every step the sharded CR solve takes, each rank assembling only its own rows
+from its slice of the problem (``assembly.RankShare``). ``launch.run_ranks``
+starts the ranks.
 
 Where JAX maps a function over the devices of a mesh (``shard_map``), each
 rank here runs the function on its own shard and calls the collectives of
@@ -67,6 +69,15 @@ class Comm:
         dist.all_gather(out, t, group=self.group)
         self.seconds += time.perf_counter() - t0
         return out
+
+    def sum_in_rank_order(self, t):
+        """The sum of t over the group, added in rank order: one all-gather,
+        the same bits on every rank (``all_reduce`` adds in gloo's order)."""
+        parts = self.all_gather(t)
+        total = parts[0]
+        for x in parts[1:]:
+            total = total + x
+        return total
 
     def all_reduce_sum(self, t):
         """The sum of t over the group (a new tensor)."""

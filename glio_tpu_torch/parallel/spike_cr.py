@@ -4,7 +4,7 @@
 The band's super-rows (``solver.banded.band_to_tridiag``: S = hw·D, each
 coupled only to its neighbours) are split over the ranks of a process group,
 ``n_loc ≥ 2`` to a rank, the last rank's tail padded with decoupled identity
-rows. Each rank
+rows (``partition``). Each rank
 
 1. Schur-eliminates its interior super-rows against its two boundary rows
    with one multi-RHS ``tridiag_cr_solve`` (2S + 1 columns), without any
@@ -20,39 +20,66 @@ Every step is an exact symmetric Schur complement, so the result equals the
 single-device ``cyclic_reduction_solve`` to round-off.
 """
 
+from typing import NamedTuple
+
 import torch
 
 from ..solver.banded import band_to_tridiag, tridiag_cr_solve
 from . import Comm
 
 
-def _local_rows(band, b, hw: int, rank: int, n_dev: int):
-    """This rank's super-rows (A, B, C, r), n_loc = max(2, ⌈N / n_dev⌉) of them.
+class Part(NamedTuple):
+    """One rank's share of a T-row band: super-rows [lo, hi) of the
+    N = ⌈T / hw⌉, n_loc = max(2, ⌈N / n_ranks⌉) a rank, i.e. band rows
+    [t0, t1). A rank past the last real super-row holds none (lo = hi = N,
+    t0 = t1 = T)."""
+    n_loc: int
+    lo: int
+    hi: int
+    t0: int
+    t1: int
 
-    Only the band rows of the rank's super-rows, and of the one before (its
-    super-diagonal block is this rank's first sub-diagonal block), are
-    converted. Super-rows past the last real one, N − 1, are identity rows."""
-    T, Bw, D, _ = band.shape
-    S = hw * D
+
+def partition(T: int, hw: int, rank: int, n_ranks: int) -> Part:
+    """The rows rank ``rank`` of ``n_ranks`` owns: the one partition of the
+    sharded solve and of the rank-local assembly (``parallel.assembly``)."""
     N = -(-T // hw)
-    n_loc = max(2, -(-N // n_dev))
-    lo, hi = rank * n_loc, min((rank + 1) * n_loc, N)
+    n_loc = max(2, -(-N // n_ranks))
+    lo, hi = min(rank * n_loc, N), min((rank + 1) * n_loc, N)
+    return Part(n_loc, lo, hi, min(lo * hw, T), min(hi * hw, T))
+
+
+def _local_rows(band, b, part: Part, T: int):
+    """This rank's n_loc super-rows (A, B, C, r) from its own band rows
+    ``band`` (t1 − t0, 2hw+1, D, D) and right-hand side ``b`` (t1 − t0, D).
+
+    A[0], the coupling to the previous rank's last super-row, is read from
+    the sub-diagonal blocks of the rank's first rows (the band is
+    symmetric). Super-rows past the last real one, N − 1, are identity rows."""
+    _, Bw, D, _ = band.shape
+    hw = (Bw - 1) // 2
+    S = hw * D
     dtype, dev = band.dtype, band.device
-    A = torch.zeros((n_loc, S, S), dtype=dtype, device=dev)
+    A = torch.zeros((part.n_loc, S, S), dtype=dtype, device=dev)
     C = torch.zeros_like(A)
-    Bm = torch.eye(S, dtype=dtype, device=dev).repeat(n_loc, 1, 1)
-    r = torch.zeros((n_loc, S), dtype=dtype, device=dev)
-    if hi > lo:
-        s0 = max(lo - 1, 0)
-        t0, t1 = s0 * hw, min(hi * hw, T)
-        A_c, B_c, C_c, n_c, _ = band_to_tridiag(band[t0:t1])
-        r_c = torch.zeros((n_c * hw, D), dtype=dtype, device=dev)
-        r_c[:t1 - t0] = b[t0:t1]
-        k = lo - s0                      # the rank's first super-row in the chunk
-        n = hi - lo
-        A[:n], Bm[:n], C[:n] = A_c[k:], B_c[k:], C_c[k:]
-        r[:n] = r_c.reshape(n_c, S)[k:]
-        if hi == N:
+    Bm = torch.eye(S, dtype=dtype, device=dev).repeat(part.n_loc, 1, 1)
+    r = torch.zeros((part.n_loc, S), dtype=dtype, device=dev)
+    n = part.hi - part.lo
+    if n:
+        A_c, B_c, C_c, _, _ = band_to_tridiag(band)
+        A[:n], Bm[:n], C[:n] = A_c, B_c, C_c
+        r_c = torch.zeros((n * hw, D), dtype=dtype, device=dev)
+        r_c[:part.t1 - part.t0] = b
+        r[:n] = r_c.reshape(n, S)
+        if part.lo:
+            # Row lo·hw + i couples to column slot i + o of super-row lo − 1
+            # through its offsets o < hw − i.
+            A0 = torch.zeros((hw, D, hw, D), dtype=dtype, device=dev)
+            for i in range(min(hw, part.t1 - part.t0)):
+                for o in range(hw - i):
+                    A0[i, :, i + o, :] = band[i, o]
+            A[0] = A0.reshape(S, S)
+        if part.t1 == T:
             C[n - 1] = 0.0               # the last real row couples to nothing
     return A, Bm, C, r
 
@@ -118,17 +145,29 @@ def make_sharded_cr_solve(group, hw: int):
     group, None for the default group, or a ``Comm``).
 
     Returns solve(band, b): band (T, 2hw+1, D, D) and b (T, D), the whole
-    system on every rank, → the exact (T, D) solution on every rank. Each
-    rank eliminates only its own super-rows. ``solve.comm`` counts and
-    times the collectives.
+    system on every rank, → the exact (T, D) solution on every rank. Its
+    entry ``solve.rows(band_rows, b_rows, T)`` takes only the rank's own rows
+    [t0, t1) of ``partition(T, hw, rank, n_ranks)``, as the rank-local
+    assembly makes them; ``solve`` slices those rows and calls it. Each rank
+    eliminates only its own super-rows. ``solve.comm`` counts and times the
+    collectives.
     """
     comm = Comm.of(group)
 
-    def solve(band, b):
-        T, _, D, _ = band.shape
-        A, Bm, C, r = _local_rows(band, b, hw, comm.rank, comm.size)
-        x_l = _partition_solve(A, Bm, C, r, comm)
-        return torch.cat(comm.all_gather(x_l)).reshape(-1, D)[:T]
+    def rows(band_rows, b_rows, T: int):
+        part = partition(T, hw, comm.rank, comm.size)
+        n = part.t1 - part.t0
+        if band_rows.shape[0] != n or b_rows.shape[0] != n:
+            raise ValueError(f"rank {comm.rank} owns rows [{part.t0}, {part.t1}) of T = {T}; "
+                             f"got {band_rows.shape[0]} band and {b_rows.shape[0]} rhs rows")
+        x_l = _partition_solve(*_local_rows(band_rows, b_rows, part, T), comm)
+        return torch.cat(comm.all_gather(x_l)).reshape(-1, band_rows.shape[-1])[:T]
 
+    def solve(band, b):
+        T = band.shape[0]
+        part = partition(T, hw, comm.rank, comm.size)
+        return rows(band[part.t0:part.t1], b[part.t0:part.t1], T)
+
+    solve.rows = rows
     solve.comm = comm
     return solve

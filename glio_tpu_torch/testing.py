@@ -923,22 +923,32 @@ def sharded_batch_bands(batch_mod, cfg, prob, sc, at_solution, at_jax, lam=1e-4)
 
 def sharded_batch_rank(rank, world_size, device, spec):
     """One rank of ``chip_smoke.py``'s multi-device phase: the batch drive's
-    problem built on ``device``, then the sharded direct solve of its band at
-    the single-device solution, the sharded PCG (dp = 2, sp = 2) of the two
-    bands of ``sharded_batch_bands`` and ``optimize_batch_sharded``, each
-    timed (host clock, closed by a synchronize) with its collectives' count,
-    bytes and seconds."""
+    problem built on the host; the sharded direct solve of its band at the
+    single-device solution and the sharded PCG (dp = 2, sp = 2) of the two
+    bands of ``sharded_batch_bands``, those bands made from the whole problem
+    copied to ``device``; the first assembly of ``optimize_batch_sharded``
+    (at the odometry, the first threshold), this rank's rows of it
+    (``parallel.assembly.RankShare``) against the whole band's, each timed
+    over ``spec["assembly_reps"]`` calls with its peak device memory; then,
+    with nothing of the whole problem left on the device,
+    ``optimize_batch_sharded`` itself. Each solve is timed (host clock,
+    closed by a synchronize) with its collectives' count, bytes and
+    seconds."""
     import time
     t_ready = time.time()
+    import torch.distributed as dist
     from .config import GlioConfig
     from .models import batch as batch_mod
-    from .parallel import Comm, banded_pcg, spike_cr
-    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    from .parallel import Comm, assembly, banded_pcg, spike_cr
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
     sc = spec["scenario"]
     cfg = GlioConfig()
     hw = cfg.estimator.search_range + 1
+    robust = robust_opts(batch_mod, sc)
     t0 = time.perf_counter()
-    prob = batch_drive_problem(sc, cfg, device)[0]
+    host = batch_drive_problem(sc, cfg, "cpu")[0]
+    prob = batch_mod.BatchProblem(*(x.to(device) for x in host))
 
     def t(a):
         return torch.as_tensor(a, device=device)
@@ -965,17 +975,57 @@ def sharded_batch_rank(rank, world_size, device, spec):
     pcg = banded_pcg.make_sharded_pcg(None, hw, spec["pcg_iters"], dp=2, sp=2)
     out["x_pcg"], out["res_pcg"] = timed("pcg", lambda: pcg(band2, b2), pcg.comm)
     out["pcg_sp_comm"] = (pcg.sp_comm.calls, pcg.sp_comm.bytes, pcg.sp_comm.seconds)
+    del band, rhs, band2, b2
+
+    def memory():                               # None: no device memory to read
+        return torch.cuda.memory_allocated(device) if cuda else None
+
+    def peak():
+        return torch.cuda.max_memory_allocated(device) if cuda else None
+
+    def assembly_ms(name, fn):
+        """ms a call over the ranks' concurrent calls, and the peak bytes."""
+        fn()
+        dist.barrier()
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        out[f"{name}_resident"] = memory()
+        t1 = time.perf_counter()
+        for _ in range(spec["assembly_reps"]):
+            res = fn()
+        sync()
+        out[f"{name}_ms"] = 1e3 * (time.perf_counter() - t1) / spec["assembly_reps"]
+        out[f"{name}_peak"] = peak()
+        return res
+
+    th0 = sc["thresholds"][0]
+    plan = batch_mod.assembly_plan(prob, hw)
+    assembly_ms("whole", lambda: batch_mod._assemble_core_impl(
+        prob.p_odo, prob.q_odo, prob, th0, hw, robust=robust, plan=plan))
+    p0, q0 = prob.p_odo, prob.q_odo
+    del prob, plan
+    share = assembly.RankShare(host, hw, rank, world_size, cfg.estimator.doppler_in_batch,
+                               device)
+    out["rows"] = assembly_ms("local", lambda: share.assemble(p0, q0, th0, robust))[:3]
+    out["part"] = tuple(share.part)
+    out["held"] = (share.prob.p_odo.shape[0], len(share.epochs)) if share.prob else (0, 0)
+    out["whole"] = (host.p_odo.shape[0], host.ep_left.shape[0])
+    del share, p0, q0
     comm = Comm()
     sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    out["batch_resident"] = memory()
     t1 = time.perf_counter()
     p, q, costs = batch_mod.optimize_batch_sharded(
-        cfg, prob, comm, thresholds=sc["thresholds"], lm_iters=sc["lm_iters"],
-        robust=robust_opts(batch_mod, sc))
+        cfg, host, comm, thresholds=sc["thresholds"], lm_iters=sc["lm_iters"], robust=robust,
+        device=device)
     sync()
     out["batch_s"] = time.perf_counter() - t1
+    out["batch_peak"] = peak()
     out["batch_comm"] = (comm.calls, comm.bytes, comm.seconds)
-    out.update(p=p, q=q, costs=costs,
-               band_sums=torch.stack([band.sum(), (band * band).sum(), band2.sum()]))
+    out.update(p=p, q=q, costs=costs)
     if rank:       # every rank returns the same vectors; rank 0's are kept
         del out["x_cr"], out["x_pcg"]
     return out
