@@ -1891,8 +1891,8 @@ def gnss_phase(dev):
 
 def _launches(fn):
     """(CUDA kernel launches, result) of one run of ``fn`` under
-    ``torch.profiler``: the device's kernels, copies and sets, as
-    ``scripts/profile_torch_batch.py`` counts them. The CUDA activity alone,
+    ``torch.profiler``: the device's kernels, copies and sets, as a traced
+    run of ``port_bench/run.py --trace 1`` counts them. The CUDA activity alone,
     counted from the profiler's raw records: with every host operator
     recorded and the event tree built, the count of the 1165-epoch filter
     took ~147 s on an H100 80GB HBM3 at 700 W, this way 21-32 s, for the same

@@ -53,7 +53,7 @@ import torch
 from ..gnss import dd as dd_mod
 from ..factors.gnss import local_to_ecef, r_ecef_local
 from ..solver import banded
-from ..utils import quat
+from ..utils import profiling, quat
 
 F64 = torch.float64
 POSE_DOF = 6  # level-0 state per keyframe: δp(3), δθ(3)
@@ -151,6 +151,13 @@ def build_problem(cfg, p_odo, q_odo, kf_time, gnss, anchor_ecef, yaw_enu_local,
                   station_ecef, despike: bool = True, *, device) -> BatchProblem:
     """Host-side problem construction (relative measurements, epoch
     binding, whitening); the result lives on ``device``."""
+    with profiling.span("batch.build"):
+        return _build_problem(cfg, p_odo, q_odo, kf_time, gnss, anchor_ecef, yaw_enu_local,
+                              station_ecef, despike, device)
+
+
+def _build_problem(cfg, p_odo, q_odo, kf_time, gnss, anchor_ecef, yaw_enu_local,
+                   station_ecef, despike, device) -> BatchProblem:
     est = cfg.estimator
     T = p_odo.shape[0]
     R = est.search_range
@@ -726,10 +733,14 @@ def _lm_stage(p0, q0, lm_iters: int, hw: int, assemble, step, trial_cost, agree=
     p, q = p0, q0
     lam = torch.tensor(1e-4, dtype=F64, device=p0.device)
     for _ in range(lm_iters):
-        band, grad, cost_cur, w_rel, w_dd = assemble(p, q)
+        with profiling.span("batch.assemble"):
+            band, grad, cost_cur, w_rel, w_dd = assemble(p, q)
         _damp(band, lam, hw)
-        p_new, q_new = _retract(p, q, step(band, grad).reshape(-1))
-        new_cost = trial_cost(p_new, q_new, w_rel, w_dd)
+        with profiling.span("batch.linear_solve"):
+            dx = step(band, grad)
+        p_new, q_new = _retract(p, q, dx.reshape(-1))
+        with profiling.span("batch.trial_cost"):
+            new_cost = trial_cost(p_new, q_new, w_rel, w_dd)
         if agree is not None:
             cost_cur, new_cost = agree(cost_cur, new_cost)
         better = new_cost < cost_cur
@@ -750,17 +761,20 @@ def optimize_batch(cfg, prob: BatchProblem, thresholds=(1e9, 10.0, 8.0, 6.0),
     to the host once per stage.
     """
     _check_supported(cfg, solver)
-    if plan is None:
-        plan = assembly_plan(prob, cfg.estimator.search_range + 1,
-                             cfg.estimator.doppler_in_batch)
-    p, q = (prob.p_odo, prob.q_odo) if init is None else init
-    if isinstance(lm_iters, int):
-        lm_iters = (lm_iters,) * len(thresholds)
-    costs = []
-    for th, iters in zip(thresholds, lm_iters):
-        p, q, cost = solve_batch_once(cfg, prob, p, q, th, iters, pcg_iters,
-                                      solver, robust, plan)
-        costs.append(float(cost))
+    with profiling.span("batch.solve"):
+        if plan is None:
+            plan = assembly_plan(prob, cfg.estimator.search_range + 1,
+                                 cfg.estimator.doppler_in_batch)
+        p, q = (prob.p_odo, prob.q_odo) if init is None else init
+        if isinstance(lm_iters, int):
+            lm_iters = (lm_iters,) * len(thresholds)
+        costs = []
+        for th, iters in zip(thresholds, lm_iters):
+            with profiling.span("batch.stage"):
+                p, q, cost = solve_batch_once(cfg, prob, p, q, th, iters, pcg_iters,
+                                              solver, robust, plan)
+                with profiling.span("batch.cost_read"):
+                    costs.append(float(cost))
     return p, q, costs
 
 
@@ -804,13 +818,17 @@ def optimize_batch_sharded(cfg, prob: BatchProblem, group=None,
 
     p, q = prob.p_odo.to(device), prob.q_odo.to(device)
     costs = []
-    for th in thresholds:
-        p, q = _lm_stage(p, q, lm_iters, hw,
-                         lambda p, q: share.assemble(p, q, th, robust),
-                         lambda band, grad: solve.rows(band, -grad, T),
-                         lambda p, q, w_rel, w_dd: share.cost(p, q, th, w_rel, w_dd),
-                         agree)
-        costs.append(float(comm.sum_in_rank_order(share.cost(p, q, th))))
+    with profiling.span("batch.solve"):
+        for th in thresholds:
+            with profiling.span("batch.stage"):
+                p, q = _lm_stage(p, q, lm_iters, hw,
+                                 lambda p, q: share.assemble(p, q, th, robust),
+                                 lambda band, grad: solve.rows(band, -grad, T),
+                                 lambda p, q, w_rel, w_dd: share.cost(p, q, th, w_rel, w_dd),
+                                 agree)
+                cost = comm.sum_in_rank_order(share.cost(p, q, th))
+                with profiling.span("batch.cost_read"):
+                    costs.append(float(cost))
     return p, q, costs
 
 

@@ -12,6 +12,11 @@ kernel; a batch takes the grid's y dimension, so at most 65,535 pairs go
 in a call and more are refused. ``knn_pairs_reference`` is
 ``knn_reference`` applied pair by pair.
 
+While span recording is on (``utils.profiling``), ``knn`` appends each
+call's (Q, N, query_valid, points_valid) to its work counter, on the card
+and on the CPU alike; ``knn_work`` sums the masks when it is read, after the
+measured window, so the call itself adds no launch and no sync.
+
 ``knn_plan`` sizes the kernel's launch on the host: how many blocks of a
 cluster share each 16-query tile and how the map is split between them
 (``knn_splits`` lists the resulting map ranges). Both are plain integer
@@ -23,6 +28,7 @@ import functools
 
 import torch
 
+from ..utils import profiling
 from . import _build, _launch
 
 K_SUPPORTED = 5
@@ -152,6 +158,8 @@ def knn(query, query_valid, points, points_valid, k: int = 5):
     missing) and (Q, k) int64 indices into ``points`` (−1 where missing).
     """
     _check(query, query_valid, points, points_valid)
+    if profiling.recording():
+        _WORK.append((query.shape[0], points.shape[0], query_valid, points_valid))
     if not query.is_cuda:
         if query.device.type == "cpu":
             return knn_reference(query, query_valid, points, points_valid, k)
@@ -172,6 +180,14 @@ def knn(query, query_valid, points, points_valid, k: int = 5):
 
 
 knn.launches = 0
+_WORK = profiling.counter("knn")
+
+
+def knn_work() -> list:
+    """(Q, valid queries, N, valid points) of each ``knn`` call recorded
+    since the last ``profiling.reset``; the masks are summed here (a host
+    read each)."""
+    return [(q, int(qv.sum()), n, int(pv.sum())) for q, n, qv, pv in _WORK]
 
 
 # --- a batch of problems over one stack of clouds --------------------------------
