@@ -8,7 +8,8 @@ Per keyframe, ``SlidingWindowEstimator.step`` does what the JAX ``step`` of
   3. voxel-downsamples the map ring to 0.4 m;
   4. associates the window's points to the map by 5-NN (the CUDA kernel
      ``ops.knn`` on the card), fits planes and keeps the best per keyframe;
-  5. solves the window by manifold LM with forward-mode Jacobians;
+  5. solves the window by manifold LM with forward-mode Jacobians (on a
+     CUDA device, as the replay of a CUDA graph captured once: ``_lm``);
   6. Schur-marginalizes the oldest keyframe into the prior;
   7. writes the solved poses back into the map ring.
 
@@ -43,6 +44,7 @@ from ..solver import dense, marginalization
 from ..solver.manifold import (POSE_DOF, WindowState, local_coordinates,
                                retract, tree_where)
 from ..utils import profiling, quat
+from ..utils.checkpoint import _leaves, _rebuild
 
 F64 = torch.float64
 F32 = torch.float32
@@ -213,6 +215,11 @@ def _shift_window(w):
     return type(w)(*(torch.cat([a[1:], a[-1:]], dim=0) for a in w))
 
 
+def cloned(tree):
+    """A (nested) named tuple of tensors with every tensor cloned."""
+    return _rebuild(tree, iter([x.clone() for x in _leaves(tree)]))
+
+
 def index_inputs(tree, i):
     """``tree[i]`` on every tensor of a (nested) named tuple, such as a
     stacked ``KeyframeInput``; None stays None."""
@@ -249,6 +256,7 @@ class SlidingWindowEstimator(nn.Module):
         self.register_buffer("t_lb", torch.tensor(est.tl2b, dtype=F64, device=device))
         self.use_gnss = est.gnss_in_sliding_window
         self.use_dopp = self.use_gnss and est.doppler_in_window
+        self._lm_graphs = {}   # input signature → captured LM (CUDA devices)
         init = cfg.initialization
         for name in ("anc_ecef", "station_ecef", "lever_arm", "yaw_enu_local"):
             self.register_buffer(name, torch.tensor(getattr(init, name), dtype=F64,
@@ -458,6 +466,93 @@ class SlidingWindowEstimator(nn.Module):
         sr = nn.functional.pad(prior.sqrt_res, (0, POSE_DOF))
         return sj, sr
 
+    def _solve_window(self, w_new: WindowState, ddt_ring, pres, imu_S, imu_edge_valid,
+                      lidar32, prior_sqrt_jac, prior_sqrt_res, prior_valid,
+                      prior_lin: WindowState, gnss_win: GnssKfData = None):
+        """Step 6, the window's LM solve and its divergence gates, as a
+        function of these tensors and the estimator's constant buffers alone;
+        ``gnss_win`` is None without GNSS rows. Before the first marginal
+        prior exists, frame 0's pose is pinned; a weak zero prior on the
+        biases is always on and is not part of the marginalized factor set.
+        Returns (solved, ddt_solved, cost)."""
+        K, newest = self.K, self.K - 1
+
+        def residual_anchored(s):
+            s, ddt_s = (s.win, s.ddt) if self.use_dopp else (s, None)
+            r = self._window_residual(s, pres, imu_S, imu_edge_valid, lidar32,
+                                      prior_sqrt_jac, prior_sqrt_res, prior_valid,
+                                      prior_lin, gnss_win, ddt_s)
+            anchor = torch.cat([
+                1e2 * (s.p[0] - w_new.p[0]),
+                1e2 * quat.log(quat.mul(quat.conj(w_new.q[0]), s.q[0])),
+            ])
+            anchor = torch.where(prior_valid, torch.zeros_like(anchor), anchor)
+            bias_reg = torch.cat([10.0 * s.ba.reshape(-1), 30.0 * s.bg.reshape(-1)])
+            return torch.cat([r, anchor, bias_reg])
+
+        max_iters = self.cfg.estimator.sw_max_iter
+        if self.use_dopp:
+            out = dense.lm_solve(residual_anchored, retract_ddt,
+                                 WindowStateDdt(w_new, ddt_ring), K * POSE_DOF + K,
+                                 max_iters=max_iters)
+            solved, ddt_solved = out.x
+        else:
+            out = dense.lm_solve(residual_anchored, retract, w_new, K * POSE_DOF,
+                                 max_iters=max_iters)
+            solved, ddt_solved = out.x, ddt_ring
+
+        # Divergence gates (Estimator.cpp:2650-2726): keep the prediction.
+        ok = (torch.isfinite(solved.p).all()
+              & (quat.norm(solved.p[newest] - w_new.p[newest]) < 100.0)
+              & (torch.sqrt(torch.sum(solved.v * solved.v)) < 100.0 * K)
+              & (solved.ba.abs().max() < 2.0)
+              & (solved.bg.abs().max() < 2.0)
+              & (ddt_solved.abs() < 1e4).all())
+        solved = tree_where(ok, solved, w_new)
+        ddt_solved = torch.where(ok, ddt_solved, ddt_ring)
+        return solved, ddt_solved, out.cost
+
+    def _lm(self, *args):
+        """``_solve_window(*args)``. Off the card it is called directly. On a
+        CUDA device it runs as the replay of a CUDA graph captured at the
+        first call with each input signature (the tensors' shapes and dtypes,
+        and which rows the window has): the live tensors are copied into the
+        graph's static inputs, and the results are clones of its static
+        outputs, so that no result aliases a buffer the next call overwrites.
+        The solve reads nothing on the host, so the replay runs the same
+        kernels on the same inputs as the direct call."""
+        if self.device.type != "cuda":
+            profiling.tally("window.lm.eager")
+            return self._solve_window(*args)
+        leaves = _leaves(args)
+        key = (self.use_gnss, self.use_dopp) + tuple((x.shape, x.dtype) for x in leaves)
+        with torch.cuda.device(self.device):
+            if key not in self._lm_graphs:
+                self._lm_graphs[key] = self._capture_lm(args)
+                profiling.tally("window.lm.captures")
+            graph, static_in, static_out = self._lm_graphs[key]
+            for buf, x in zip(static_in, leaves):
+                buf.copy_(x)
+            graph.replay()
+            profiling.tally("window.lm.replays")
+            return cloned(static_out)
+
+    def _capture_lm(self, args):
+        """(graph, static inputs, static outputs) of ``_solve_window`` on
+        copies of ``args``: one direct run on a side stream first, as
+        capture requires, then the capture."""
+        static = cloned(args)
+        stream = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self._solve_window(*static)
+        stream.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = self._solve_window(*static)
+        return graph, _leaves(static), out
+
     def step(self, carry: ReplayCarry, inp: KeyframeInput):
         """One keyframe; returns (new carry, StepOutput)."""
         with profiling.span("window.step"):
@@ -553,43 +648,12 @@ class SlidingWindowEstimator(nn.Module):
             lidar32 = (meas.points.to(F32), meas.normal.to(F32), meas.d.to(F32),
                        meas.score.to(F32), meas.mask)
 
-        # 6. Solve. Before the first marginal prior exists, frame 0's pose
-        # is pinned; a weak zero prior on the biases is always on and is
-        # not part of the marginalized factor set.
-        def residual_anchored(s):
-            s, ddt_s = (s.win, s.ddt) if self.use_dopp else (s, None)
-            r = self._window_residual(s, pres, imu_S, imu_edge_valid, lidar32,
-                                      c.prior_sqrt_jac, c.prior_sqrt_res,
-                                      c.prior_valid, c.prior_lin,
-                                      gnss_win if self.use_gnss else None, ddt_s)
-            anchor = torch.cat([
-                1e2 * (s.p[0] - w_new.p[0]),
-                1e2 * quat.log(quat.mul(quat.conj(w_new.q[0]), s.q[0])),
-            ])
-            anchor = torch.where(c.prior_valid, torch.zeros_like(anchor), anchor)
-            bias_reg = torch.cat([10.0 * s.ba.reshape(-1), 30.0 * s.bg.reshape(-1)])
-            return torch.cat([r, anchor, bias_reg])
-
+        # 6. Solve.
         with profiling.span("window.lm"):
-            if self.use_dopp:
-                out = dense.lm_solve(residual_anchored, retract_ddt,
-                                     WindowStateDdt(w_new, ddt_ring), K * POSE_DOF + K,
-                                     max_iters=est.sw_max_iter)
-                solved, ddt_solved = out.x
-            else:
-                out = dense.lm_solve(residual_anchored, retract, w_new, K * POSE_DOF,
-                                     max_iters=est.sw_max_iter)
-                solved, ddt_solved = out.x, ddt_ring
-
-            # Divergence gates (Estimator.cpp:2650-2726): keep the prediction.
-            ok = (torch.isfinite(solved.p).all()
-                  & (quat.norm(solved.p[newest] - w_new.p[newest]) < 100.0)
-                  & (torch.sqrt(torch.sum(solved.v * solved.v)) < 100.0 * K)
-                  & (solved.ba.abs().max() < 2.0)
-                  & (solved.bg.abs().max() < 2.0)
-                  & (ddt_solved.abs() < 1e4).all())
-            solved = tree_where(ok, solved, w_new)
-            ddt_solved = torch.where(ok, ddt_solved, ddt_ring)
+            solved, ddt_solved, cost = self._lm(
+                w_new, ddt_ring, pres, imu_S, imu_edge_valid, lidar32, c.prior_sqrt_jac,
+                c.prior_sqrt_res, c.prior_valid, c.prior_lin,
+                gnss_win if self.use_gnss else None)
 
         # 7. Marginalize the oldest frame once the window is full.
         with profiling.span("window.marginalize"):
@@ -644,7 +708,7 @@ class SlidingWindowEstimator(nn.Module):
                                 imu_seed, gnss_win, ddt_solved)
         out_rec = StepOutput(
             p=solved.p[newest], q=solved.q[newest], v=solved.v[newest],
-            ba=solved.ba[newest], bg=solved.bg[newest], cost=out.cost,
+            ba=solved.ba[newest], bg=solved.bg[newest], cost=cost,
             n_lidar_factors=meas.mask.sum().to(torch.int32), ddt=ddt_solved[newest])
         return new_carry, out_rec
 

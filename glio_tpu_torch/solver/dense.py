@@ -61,7 +61,8 @@ def lm_solve(residual_fn: Callable, retract_fn: Callable, x0, tangent_dim: int,
     r = residual_fn(x0)
     cost = init_cost = _cost(r)
     x = x0
-    lam = torch.tensor(LAMBDA_INIT, dtype=torch.float64, device=dev)
+    # Made on the device: a host tensor's copy would stop a CUDA graph's capture.
+    lam = torch.full((), LAMBDA_INIT, dtype=torch.float64, device=dev)
     accepted = torch.zeros((), dtype=torch.int32, device=dev)
     for _ in range(max_iters):
         x_lin = x

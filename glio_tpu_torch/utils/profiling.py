@@ -17,7 +17,10 @@ root. No span reads a device value, syncs or launches anything, so a span's
 interval is the host's: the kernels it launched may run later, and the
 profiler's correlation ids tie each one to the host call that launched it.
 ``counter(name)`` is a list an op appends its work to while recording is
-on; ``reset`` empties the records and every counter.
+on; ``reset`` empties the records and every counter. ``tally(name)`` adds
+one to an integer that counts whether recording is on or off, for the life
+of the process (``reset`` keeps it): how often a path was taken, such as the
+window LM's CUDA-graph captures, replays and direct calls.
 """
 
 import itertools
@@ -108,6 +111,7 @@ _records = []         # [name, start, end, id, parent, unit], in order of start
 _open = []            # the open spans' records, innermost last
 _units = itertools.count()
 _counters = {}
+_tallies = defaultdict(int)
 
 
 class _NoSpan:
@@ -202,3 +206,13 @@ def counter(name: str) -> list:
     """The list that the op ``name`` appends its work to while recording is
     on (one list a name; ``reset`` empties it)."""
     return _counters.setdefault(name, [])
+
+
+def tally(name: str):
+    """Add one to the always-on tally ``name``."""
+    _tallies[name] += 1
+
+
+def tallies() -> dict:
+    """Every tally of the process: name → count."""
+    return dict(_tallies)
