@@ -31,7 +31,7 @@ port's arithmetic) and writes, under ``tests/data/``:
   nudges of p0.
 * ``window_gnss_spread_seed21.npz`` (``--only window_test``) — the spread of
   JAX's GNSS-window replay with Doppler rows under ±1e-9 m nudges of p0, per
-  keyframe, for ``tests/test_torch_window_gnss.py``.
+  keyframe, for ``tests/test_torch_window_gnss_replay.py``.
 
 Each file stores its configuration and scenario. ``rinex`` takes about ten
 minutes, the others a few:
@@ -317,7 +317,7 @@ def make_doppler_window():
 
 def make_window_test():
     """JAX's own spread under ±1e-9 m nudges of p0, per keyframe, of the
-    GNSS-window replay with Doppler rows in ``tests/test_torch_window_gnss.py``
+    GNSS-window replay with Doppler rows in ``tests/test_torch_window_gnss_replay.py``
     (the JAX package's e2e shapes, ``WINDOW_TEST``)."""
     _jax()
     from glio_tpu.config import EstimatorConfig, GlioConfig, ShapeConfig

@@ -2,10 +2,13 @@
 
 Real TPU hardware in this environment is a single chip; multi-chip sharding
 paths are validated on virtual CPU devices exactly as the driver's
-``dryrun_multichip`` does.
+``dryrun_multichip`` does. Torch runs one thread, and every test has a
+wall-time limit (``LIMIT_S``).
 """
 
 import os
+import signal
+import threading
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 flags = os.environ.get("XLA_FLAGS", "")
@@ -21,8 +24,45 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
+import torch  # noqa: E402
+
+# Six test workers share the host's cores, and the port's tests are chains of
+# tiny ops: torch's default pool of one thread a core in every worker
+# oversubscribes the host many times over and slows each op down.
+torch.set_num_threads(1)
+torch.set_num_interop_threads(1)
 
 import pytest  # noqa: E402
+
+# Wall seconds that one test's setup, call and teardown may take together.
+LIMIT_S = 300
+
+
+class TimeLimitExceeded(BaseException):
+    """A test ran past ``LIMIT_S``. Not an ``Exception``, so that a test's own
+    ``except Exception`` cannot swallow it."""
+
+
+@pytest.hookimpl(wrapper=True)
+def pytest_runtest_protocol(item, nextitem):
+    """Fail a test that runs past ``LIMIT_S`` by its node id, and go on to the
+    next. A module fixture built in the first test's setup, or torn down in
+    the last one's teardown, counts against that test. Where SIGALRM cannot
+    reach the test (no ``setitimer``, or not the main thread), it does
+    nothing."""
+    if not hasattr(signal, "setitimer") or threading.current_thread() is not threading.main_thread():
+        return (yield)
+
+    def overrun(signum, frame):
+        raise TimeLimitExceeded(f"{item.nodeid} ran past its {LIMIT_S} s limit")
+
+    previous = signal.signal(signal.SIGALRM, overrun)
+    signal.setitimer(signal.ITIMER_REAL, LIMIT_S)
+    try:
+        return (yield)
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, previous)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -11,7 +11,7 @@ Tolerance: 1e-5 of the largest entry, NaN block rows equal (JAX leaves 0
 above the diagonal of a broken block, the port NaN). The two libraries sum
 each block product in another order (the port a dot in c order, XLA its
 own); measured here 1.7e-7 (factor) and 1.4e-7 (solve) at D = 7, 8.4e-8
-and 1.6e-7 at D = 15. D = 6 is held so in ``test_torch_batch_doppler.py``.
+and 1.6e-7 at D = 15. D = 6 is held so in ``test_torch_batch_chol_pcg.py``.
 """
 
 import jax.numpy as jnp

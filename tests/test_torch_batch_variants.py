@@ -1,7 +1,7 @@
 """Port parity: the batch variants (``models/batch.py``: ``optimize_batch_atm``,
-``derive_relatives``, ``optimize_batch_reference_cadence``,
-``optimize_batch_incremental``) and ``factors/pose.py`` against the JAX
-package.
+``derive_relatives``) and ``factors/pose.py`` against the JAX package. The
+cadence and incremental modes are ``tests/test_torch_batch_cadence.py``'s and
+``tests/test_torch_batch_incremental.py``'s, on this file's problem.
 
 The problem is ``tests/test_batch.py``'s: T = 120 keyframes of a 3 Hz drive
 with a quadratic odometry drift to ~6 m and simulated GNSS every third
@@ -17,8 +17,7 @@ positions and zenith biases are held to 1e-7 m, quaternions to 1e-9.
 iterations short on this stiff chain, where round-off steers the Krylov
 iterates: a ±1e-9 m nudge of the LM's start moves JAX's own result by
 5.2e-4 m in p, 7.4e-4 m in z and 3.3e-6 in q, and the port is held to 10x
-that. The incremental modes chain odometry hops on the host and re-derive
-the relatives from each result: 1e-6 m and 1e-8.
+that.
 """
 
 import functools
@@ -46,14 +45,6 @@ TCFG = convert.config_from_glio(CFG)
 P_TOL, Q_TOL = 1e-7, 1e-9
 ATM_TOL = {"direct": (P_TOL, Q_TOL, P_TOL), "chol_pcg": (1e-6, 1e-8, 1e-6),  # p, q, z
            "pcg": (5.2e-3, 3.3e-5, 7.4e-3)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -147,61 +138,6 @@ def _f64(fn):
     with unittest.mock.patch.object(JB, "optimize_batch", ob), \
             unittest.mock.patch.object(JB, "solve_batch_once", sb):
         return fn()
-
-
-@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
-def test_reference_cadence_matches_jax(problem, warm):
-    """Re-solves every 40 keyframes (30, 70, 110), then the full problem:
-    the result is ``optimize_batch`` of the whole problem, bit for bit, and
-    JAX's within round-off."""
-    prob, prob_t, _, _ = problem
-    kw = dict(every=40, lm_iters=3, final_lm_iters=5, warm_start=warm, warm_lm_iters=3)
-    p_j, q_j, st_j = _f64(lambda: JB.optimize_batch_reference_cadence(CFG, prob, **kw))
-    p_t, q_t, st_t = TB.optimize_batch_reference_cadence(TCFG, prob_t, **kw)
-    assert st_t["n_resolves"] == st_j["n_resolves"] == 3
-    assert 0 < st_t["resolve_max_s"] and st_t["total_s"] >= st_t["final_s"] > 0
-    p_once, q_once, _ = TB.optimize_batch(TCFG, prob_t, lm_iters=5)
-    assert torch.equal(p_t, p_once) and torch.equal(q_t, q_once)
-    _close(p_t, p_j, P_TOL, "p")
-    _close(q_t, q_j, Q_TOL, "q")
-
-
-def test_mask_prefix_matches_jax(problem):
-    prob, prob_t, _, _ = problem
-    for n in (30, 70, 119):
-        got = TB._mask_prefix(prob_t.rel_valid, prob_t.ep_valid, prob_t.ep_left, n)
-        want = JB._mask_prefix(prob.rel_valid, prob.ep_valid, prob.ep_left,
-                               jnp.asarray(n, jnp.int32))
-        for a, b in zip(got, want):
-            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-
-
-@pytest.mark.parametrize("rederive", [True, False], ids=["rederive", "original"])
-def test_optimize_batch_incremental_matches_jax(problem, rederive):
-    """Re-solves every 40 keyframes, the hops chained on the host, then two
-    relaxation passes (with ``rederive``)."""
-    prob, prob_t, kf_time, p_true = problem
-    kw = dict(every=40, lm_iters=3, rederive=rederive,
-              relaxation_passes=2 if rederive else 0)
-    p_j, q_j = _f64(lambda: JB.optimize_batch_incremental(CFG, prob, kf_time, **kw))
-    p_t, q_t = TB.optimize_batch_incremental(TCFG, prob_t, kf_time, **kw)
-    _close(p_t, p_j, 1e-6, "p")
-    _close(q_t, q_j, 1e-8, "q")
-    e0 = np.linalg.norm(prob_t.p_odo.numpy() - p_true, axis=-1).mean()
-    assert np.linalg.norm(p_t.numpy() - p_true, axis=-1).mean() < e0
-
-
-def test_original_hops_and_chain_match_jax(problem):
-    prob, prob_t, _, _ = problem
-    got, want = TB._original_hops(prob_t), JB._original_hops(prob)
-    for a, b in zip(got, want):
-        _close(a, b, 1e-12, "hops")
-    p_t, q_t = (np.zeros((120, 3)), np.tile([1.0, 0, 0, 0], (120, 1)))
-    p_j, q_j = p_t.copy(), q_t.copy()
-    TB._chain_hops(p_t, q_t, *got, 0, 120)
-    JB._chain_hops(p_j, q_j, *want, 0, 120)
-    _close(p_t, p_j, 1e-9, "p")
-    _close(q_t, q_j, 1e-12, "q")
 
 
 # --- factors/pose.py ---------------------------------------------------------------

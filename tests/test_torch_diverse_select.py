@@ -43,14 +43,6 @@ CFG = BASE.replace(feature_selection=dataclasses.replace(BASE.feature_selection,
 TOL = {"p": 1e-4, "q": 1e-5}
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def raycast_window():
     """Five 512-point surf clouds of 16 × 360 raycast frames along a 10 Hz

@@ -28,16 +28,6 @@ from glio_tpu_torch.utils import quat as tquat
 MASKS = ("sharp", "less_sharp", "flat", "less_flat")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Long chains of small torch ops: one intra-op thread is as fast, and
-    keeps a parallel test run's workers from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def synthetic_scan(R=8, P=360):
     """``tests/test_lidar.py::TestFeatures._synthetic_scan``: rings over flat
     ground and one wall whose range step makes curvature spikes."""

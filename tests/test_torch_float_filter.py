@@ -40,16 +40,6 @@ LAM = 0.19029367
 POS_TOL, COV_RTOL = 1e-6, 1e-6
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """A long chain of small torch ops: one intra-op thread is as fast, and
-    keeps a parallel run's workers from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _drive(T=180):
     kf_time = np.arange(T) / 3.0
     th = np.linspace(0, 3, T)

@@ -37,16 +37,6 @@ HOST_F64 = ("imu_acc", "imu_gyr", "imu_dt", "q0", "acc0", "gyr0")
 NUDGE_M = 1e-5
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Long chains of small torch ops: one intra-op thread is as fast, and
-    keeps a parallel test run's workers from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _messages(rng):
     xyz = (rng.normal(size=(100, 3)) * 10).astype(np.float32)
     ring = (np.arange(100) % 16).astype(np.uint16)

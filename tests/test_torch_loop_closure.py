@@ -44,17 +44,6 @@ def _t(a):
     return torch.as_tensor(np.asarray(a))
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These runs are long chains of small torch ops: one intra-op thread
-    is as fast alone, and keeps a parallel test run's workers from
-    oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.mark.parametrize("delta", [1.0, 0.2])
 def test_huber_weight_matches_jax(delta):
     r = np.random.default_rng(0).normal(scale=1.0, size=500)

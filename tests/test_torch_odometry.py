@@ -43,16 +43,6 @@ CONFIGS = {
 }
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Long chains of small torch ops: one intra-op thread is as fast, and
-    keeps a parallel test run's workers from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def drive():
     """(episode, surf clouds (8, 512, 3), masks) as TestFullFrontendStack makes them."""

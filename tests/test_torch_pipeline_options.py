@@ -15,8 +15,6 @@ with the same number of loop edges.
 import dataclasses
 
 import numpy as np
-import pytest
-import torch
 
 from glio_tpu.config import EstimatorConfig, GlioConfig, ShapeConfig
 from glio_tpu.data.simulator import simulate_episode as jax_simulate
@@ -31,17 +29,6 @@ SMALL = GlioConfig().replace(
     shapes=ShapeConfig(max_imu_per_interval=40, scan_points=256, map_points=2048),
     estimator=EstimatorConfig(local_map_width=6, sw_max_iter=4))
 M_PER_DEG = 111_320.0
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These runs are long chains of small torch ops: one intra-op thread
-    is as fast alone, and keeps a parallel test run's workers from
-    oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _both(cfg, tmp_path, make, **kw):

@@ -31,17 +31,6 @@ ANCHOR = np.asarray(CFG.initialization.anc_ecef)
 STATION = np.asarray(CFG.initialization.station_ecef)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These runs are long chains of small torch ops: one intra-op thread
-    is as fast alone, and keeps a parallel test run's workers from
-    oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _exact_epoch(nlos: bool):
     """One epoch of 16 satellites, the rover 500/−300/200 m from the station
     (``tests/test_pipeline_aux.py::test_rtk_dd_fix_synthetic``), optionally

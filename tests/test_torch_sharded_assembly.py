@@ -38,16 +38,6 @@ def _cfg(doppler):
     return base.replace(estimator=dataclasses.replace(base.estimator, doppler_in_batch=doppler))
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """These tensors are small: one torch thread runs them faster, and leaves
-    the cores to the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def problem():
     """problem(T, doppler): the drive cut to T keyframes, its problem, and a
