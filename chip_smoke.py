@@ -34,7 +34,9 @@ Phases, each of which raises on failure:
    plain times by CUDA events around one call queued behind a device sleep
    (so the host's path to the launch is not counted), median of 20; each
    wrapper's host path per call (enqueue time, no sync); then the voxel
-   grid on the card against the CPU on one 51,200-point map ring;
+   grid on the card against the CPU on one 51,200-point map ring; the IMU
+   preintegration kernel against its loop on the same card tensors within
+   1e-10 (``testing.IMU_PREINT_CASES``), both timed at the window's 4 x 40;
 4. replay: the 30-keyframe ``simulate_episode(seed=0)`` through
    ``SlidingWindowEstimator.replay``, once to warm up and once timed; the
    kernel must have launched once per keyframe, every output must be
@@ -228,6 +230,7 @@ from glio_tpu_torch.data.simulator import (drifted_trajectory, random_walk_odome
                                            simulate_episode, simulate_gnss_epochs)
 from glio_tpu_torch import testing
 from glio_tpu_torch.eval import pointcloud
+from glio_tpu_torch.factors import imu as imu_factors
 from glio_tpu_torch.gnss import converter as gnss_converter
 from glio_tpu_torch.gnss import native as gnss_native
 from glio_tpu_torch.gnss import rtk as gnss_rtk
@@ -245,8 +248,8 @@ from glio_tpu_torch.ops import probe as probe_mod
 from glio_tpu_torch.parallel.launch import run_ranks
 from glio_tpu_torch.pipeline import run_pipeline
 from glio_tpu_torch.solver import banded
-from glio_tpu_torch.testing import (KNN_CASES, KNN_PAIR_CASES, cloud, dense_episode,
-                                    divergence_episode, frames_digest, gpu_clock_mhz,
+from glio_tpu_torch.testing import (IMU_PREINT_CASES, KNN_CASES, KNN_PAIR_CASES, cloud,
+                                    dense_episode, divergence_episode, frames_digest, gpu_clock_mhz,
                                     knn_bound_ms, knn_pairs_bound_ms, loop_episode, raw_config,
                                     raw_drive, reset_decisions, time_device_ms, write_raw_bag)
 
@@ -431,6 +434,7 @@ def kernel_phase(dev):
           f"clone 8x128 {copy_kern['plain_host_us']:.2f} us")
 
     knn_kern["max_abs_err_pairs"] = knn_pair_cases(dev)
+    imu_kern = imu_preint_cases(dev)
 
     pts, valid = cloud(rng, 51200)
     out_c, v_c = neighbors.voxel_downsample(torch.tensor(pts), torch.tensor(valid),
@@ -441,7 +445,28 @@ def kernel_phase(dev):
     check(torch.equal(v_g.cpu(), v_c) and torch.equal(out_g.cpu(), out_c),
           "voxel_downsample differs between the card and the CPU")
     print(f"voxel_downsample 51200 -> 16384: card == CPU ({int(v_c.sum())} kept)")
-    return knn_kern, copy_kern
+    return knn_kern, copy_kern, imu_kern
+
+
+def imu_preint_cases(dev):
+    """The IMU preintegration kernel against its loop on the same card
+    tensors, every field within 1e-10 (the loop's own bound against JAX),
+    on ``IMU_PREINT_CASES``; both timed at the window's 4 edges x 40."""
+    worst = 0.0
+    for name, make in IMU_PREINT_CASES.items():
+        args = [torch.tensor(a, device=dev) for a in make(np.random.default_rng(0))]
+        got, ref = imu_factors.preintegrate(*args), imu_factors.preintegrate_reference(*args)
+        for field, g, r in zip(imu_factors.Preintegrated._fields, got, ref):
+            check(torch.allclose(g, r, rtol=1e-10, atol=1e-10),
+                  f"imu_preint {name} {field}: kernel and loop differ beyond 1e-10")
+            worst = max(worst, float((g - r).abs().max()) if g.numel() else 0.0)
+    window = [torch.tensor(a, device=dev)
+              for a in IMU_PREINT_CASES["window_4x40"](np.random.default_rng(0))]
+    ms = time_device_ms(lambda: imu_factors.preintegrate(*window))
+    plain_ms = time_device_ms(lambda: imu_factors.preintegrate_reference(*window))
+    print(f"imu_preint: kernel == loop within 1e-10 on {len(IMU_PREINT_CASES)} cases (max "
+          f"|diff| {worst:.3g}); window 4 x 40: kernel call {ms:.4f} ms, loop {plain_ms:.4f} ms")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
 
 def knn_pair_cases(dev):
@@ -2318,7 +2343,7 @@ def main():
     t_start = time.perf_counter()
     dev = device_phase()
     print(f"build: {_build.build_all():.1f} s")
-    knn_kern, copy_kern = kernel_phase(dev)
+    knn_kern, copy_kern, imu_kern = kernel_phase(dev)
     launches = replay_phase(dev)
     copy_launches = probe_phase()
     batch_ctx = batch_phase(dev)
@@ -2366,6 +2391,9 @@ def main():
          "replaces": "glio_tpu/ops/knn_pallas.py:30", **pairs_kern},
         {"name": "copy_f32", "route": "cuda", "source": "glio_tpu_torch/csrc/copy.cu",
          "replaces": "scripts/probe_pallas.py:28", "launches": copy_launches, **copy_kern},
+        {"name": "imu_preint_f64", "route": "cuda", "source": "glio_tpu_torch/csrc/imu_preint.cu",
+         "replaces": None, "replaces_note": "no TPU kernel: the port's loop over the IMU slots, "
+                                           "factors/imu.py::preintegrate_reference", **imu_kern},
         {"name": "band_chol_f32", "route": "cuda", "source": "glio_tpu_torch/csrc/band_chol.cu",
          "replaces": "glio_tpu/solver/banded.py:135",
          "replaces_note": "no Pallas kernel: the plain-JAX block_cholesky (a lax.scan) that "

@@ -3,18 +3,24 @@
 Midpoint preintegration of (Δp, Δq, Δv) with the 15×15 Jacobian and
 covariance propagation of ``GLIO/include/factors/Preintegration.h:96-235``.
 Every function broadcasts over leading axes, so one call serves all the
-window's edges: ``preintegrate`` is a Python loop over the samples of the
-padded buffer with the edges as the batch. The propagation runs in f64
-throughout; the JAX package's f32 associative-scan fast path is a TPU
-workaround for emulated f64 and has no counterpart here.
+window's edges. ``preintegrate`` runs by device: on a CUDA device it is one
+launch of the kernel ``csrc/imu_preint.cu`` (``ops/imu_preint.py``), a block
+an edge; elsewhere, the CPU included, it is ``preintegrate_reference``, a
+Python loop over the samples of the padded buffer with the edges as the
+batch, which is the kernel's plain version. Each call adds one to the tally
+``imu.preintegrate.kernel`` or ``imu.preintegrate.loop``
+(``utils.profiling.tallies``). The propagation runs in f64 throughout; the
+JAX package's f32 associative-scan fast path is a TPU workaround for
+emulated f64 and has no counterpart here.
 """
 
 from typing import NamedTuple
 
 import torch
 
+from ..ops import imu_preint
 from ..solver.linalg import cholesky_or_nan
-from ..utils import quat, so3
+from ..utils import profiling, quat, so3
 
 STATE_DIM = 15  # δp(3) δθ(3) δv(3) δba(3) δbg(3)
 NOISE_DIM = 18  # acc_n(i), gyr_n(i), acc_n(j), gyr_n(j), acc_w, gyr_w
@@ -93,7 +99,19 @@ def _fv_matrices(q, q_new, a0, a1, un_gyr, dt, ba):
 
 def preintegrate(acc, gyr, dt, valid, ba, bg, acc0, gyr0,
                  noise_cov) -> Preintegrated:
-    """Preintegrate padded IMU sample runs.
+    """Preintegrate padded IMU sample runs: the kernel on a CUDA device,
+    ``preintegrate_reference`` elsewhere (the same arguments and result)."""
+    if acc.is_cuda:
+        profiling.tally("imu.preintegrate.kernel")
+        out = imu_preint.preintegrate(acc, gyr, dt, valid, ba, bg, acc0, gyr0, noise_cov)
+        return Preintegrated(*out, ba.to(F64), bg.to(F64))
+    profiling.tally("imu.preintegrate.loop")
+    return preintegrate_reference(acc, gyr, dt, valid, ba, bg, acc0, gyr0, noise_cov)
+
+
+def preintegrate_reference(acc, gyr, dt, valid, ba, bg, acc0, gyr0,
+                           noise_cov) -> Preintegrated:
+    """Preintegrate padded IMU sample runs, one sample slot at a time.
 
     Args:
       acc, gyr: (..., N, 3) samples (body frame, m/s², rad/s).

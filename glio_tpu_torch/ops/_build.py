@@ -24,7 +24,7 @@ CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "glio_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("knn.cu", "copy.cu")
+SOURCES = ("knn.cu", "copy.cu", "imu_preint.cu")
 # Builds with definitions that ``build_all`` makes beside SOURCES: the band
 # Cholesky kernels at the (D, hw) of the batch paths that use them
 # (search_range + 1 = 7): the pose blocks (D = 6), the zenith-bias chain

@@ -125,6 +125,54 @@ KNN_PAIR_CASES = {
 }
 
 
+def imu_runs(rng, lead, n=40, valid_share=1.0, garbage=False, dense_noise=False):
+    """Inputs of ``factors.imu.preintegrate`` as numpy arrays: (acc, gyr,
+    dt, valid, ba, bg, acc0, gyr0, noise_cov) for ``lead`` edges of ``n``
+    slots of 100 Hz samples near rest (gravity plus a few m/s², turns under
+    0.3 rad/s), ``valid_share`` of the slots valid at random. With
+    ``garbage`` the invalid slots hold large finite values (a padded buffer
+    is never cleared); with ``dense_noise`` the 18 × 18 noise block is the
+    diagonal one plus a dense symmetric positive part."""
+    from .factors.imu import ImuParams
+    lead = tuple(lead)
+    acc = rng.normal(size=lead + (n, 3)) * 2.0 + [0.0, 0.0, 9.8]
+    gyr = rng.normal(size=lead + (n, 3)) * 0.1
+    dt = 0.01 + rng.uniform(-5e-4, 5e-4, size=lead + (n,))
+    valid = rng.uniform(size=lead + (n,)) < valid_share
+    if garbage:
+        acc = np.where(valid[..., None], acc, rng.normal(size=acc.shape) * 1e3)
+        gyr = np.where(valid[..., None], gyr, rng.normal(size=gyr.shape) * 1e2)
+        dt = np.where(valid, dt, rng.uniform(1.0, 10.0, size=dt.shape))
+    noise = ImuParams().noise_cov().numpy()
+    if dense_noise:
+        a = rng.normal(size=(18, 18)) * 1e-3
+        noise = noise + a @ a.T
+    return (acc, gyr, dt, valid, rng.normal(size=lead + (3,)) * 0.05,
+            rng.normal(size=lead + (3,)) * 0.005, acc[..., 0, :] + rng.normal(size=3) * 0.1,
+            gyr[..., 0, :] + rng.normal(size=3) * 0.01, noise)
+
+
+def _no_valid_edge(r):
+    args = imu_runs(r, (3,))
+    args[3][1] = False
+    return args
+
+
+# name: rng -> the inputs of factors.imu.preintegrate (``imu_runs``), for the
+# kernel against its plain version on the card.
+IMU_PREINT_CASES = {
+    "window_4x40": lambda r: imu_runs(r, (4,)),            # the window's edges
+    "single_40": lambda r: imu_runs(r, ()),                # no leading axis: one block
+    "lead_2x3x40": lambda r: imu_runs(r, (2, 3)),
+    "chain_3492x40": lambda r: imu_runs(r, (3492,)),       # the batch's IMU chain
+    "scattered_invalid": lambda r: imu_runs(r, (4,), valid_share=0.6, garbage=True),
+    "no_valid_edge": _no_valid_edge,
+    "dense_noise": lambda r: imu_runs(r, (4,), dense_noise=True),
+    # 150 slots: the kernel stages samples 64 at a time, gaps across its tiles.
+    "long_3x150": lambda r: imu_runs(r, (3,), n=150, valid_share=0.5, garbage=True),
+}
+
+
 def knn_pairs_bound_ms(world_valid, i_idx, j_idx, sms, clock_mhz):
     """``knn_bound_ms`` summed over a batch of pairs: each pair's valid
     queries times its valid map points, at 8 FP32 operations each."""

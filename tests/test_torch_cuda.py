@@ -1,6 +1,7 @@
 """The port's CUDA path on the card: the k-NN kernel (single problems and
 batches of keyframe pairs, the loop-closure ICP's 1024 x 25,600 among them)
-and the copy kernel against their plain versions, bit for bit, the f32
+and the copy kernel against their plain versions, bit for bit, the IMU
+preintegration kernel against its loop within 1e-10, the f32
 band Cholesky factor and solve kernels against their plain versions (at
 the block sizes 6, 7 and 15) and ``chol_pcg``, the probe, the replay, the batch stage, batch level 1, stage
 3, backend fusion, the LOAM features, the LiDAR odometry, SPP and the GNSS
@@ -23,14 +24,17 @@ import torch
 from glio_tpu_torch.config import EstimatorConfig, GlioConfig, ShapeConfig
 from glio_tpu_torch.data.simulator import (drifted_trajectory, random_walk_odometry,
                                            simulate_episode, simulate_gnss_epochs)
+from glio_tpu_torch.factors import imu as timu
 from glio_tpu_torch.lidar import neighbors
 from glio_tpu_torch.models import batch
 from glio_tpu_torch.models.sliding_window import SlidingWindowEstimator
-from glio_tpu_torch.ops import band_chol
+from glio_tpu_torch.ops import band_chol, imu_preint
 from glio_tpu_torch.ops import knn as knn_mod
 from glio_tpu_torch.ops import probe
 from glio_tpu_torch.solver import banded
-from glio_tpu_torch.testing import KNN_CASES, KNN_PAIR_CASES, cloud, spd_band
+from glio_tpu_torch.testing import (IMU_PREINT_CASES, KNN_CASES, KNN_PAIR_CASES, cloud,
+                                    spd_band)
+from glio_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 F32 = np.float32
@@ -420,6 +424,53 @@ def test_knn_pairs_launches_on_the_current_stream(cuda):
         d_k, i_k = knn_mod.knn_pairs(*args)
     torch.cuda.synchronize()
     assert torch.equal(i_k, i_r) and torch.equal(d_k, d_r)
+
+
+@pytest.mark.parametrize("case", sorted(IMU_PREINT_CASES))
+def test_imu_preint_kernel_matches_loop(cuda, case):
+    """The kernel against the loop run on the same card tensors, every field
+    within the 1e-10 that tests/test_torch_imu.py holds the loop to against
+    JAX (the same f64 recurrence, sums taken in another order)."""
+    args = [torch.tensor(a, device=cuda)
+            for a in IMU_PREINT_CASES[case](np.random.default_rng(0))]
+    before = imu_preint.preintegrate.launches
+    tally = profiling.tallies().get("imu.preintegrate.kernel", 0)
+    got = timu.preintegrate(*args)
+    ref = timu.preintegrate_reference(*args)
+    torch.cuda.synchronize()
+    assert imu_preint.preintegrate.launches == before + 1
+    assert profiling.tallies()["imu.preintegrate.kernel"] == tally + 1
+    for name, g, r in zip(timu.Preintegrated._fields, got, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype and g.is_cuda, name
+        torch.testing.assert_close(g, r, rtol=1e-10, atol=1e-10, msg=lambda m: f"{name}: {m}")
+
+
+def test_imu_preint_launches_on_the_current_stream(cuda):
+    src = [torch.tensor(a, device=cuda)
+           for a in IMU_PREINT_CASES["window_4x40"](np.random.default_rng(1))]
+    ref = timu.preintegrate_reference(*src)
+    args = [torch.zeros_like(a) for a in src]
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        for a, s in zip(args, src):
+            a.copy_(s)
+        got = timu.preintegrate(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-10, atol=1e-10)
+
+
+def test_imu_preint_kernel_refuses_other_shapes(cuda):
+    args = [torch.tensor(a, device=cuda)
+            for a in IMU_PREINT_CASES["window_4x40"](np.random.default_rng(2))]
+    with pytest.raises(ValueError):
+        imu_preint.preintegrate(*args[:-1], args[-1][:15, :15])
+    with pytest.raises(ValueError):
+        imu_preint.preintegrate(args[0], args[1], args[2][:, :39], *args[3:])
+    with pytest.raises(TypeError):
+        imu_preint.preintegrate(*args[:3], args[3].to(torch.uint8), *args[4:])
 
 
 def _level1_scenario(T, seed=4):
