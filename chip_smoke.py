@@ -248,6 +248,7 @@ from glio_tpu_torch.ops import probe as probe_mod
 from glio_tpu_torch.parallel.launch import run_ranks
 from glio_tpu_torch.pipeline import run_pipeline
 from glio_tpu_torch.solver import banded
+from glio_tpu_torch.utils import profiling
 from glio_tpu_torch.testing import (IMU_PREINT_CASES, KNN_CASES, KNN_PAIR_CASES, cloud,
                                     dense_episode, divergence_episode, frames_digest, gpu_clock_mhz,
                                     knn_bound_ms, knn_pairs_bound_ms, loop_episode, raw_config,
@@ -309,6 +310,13 @@ HBM_GB_S = 3350.0     # H100 SXM device memory, NVIDIA's data sheet
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def kernel_launches(name: str) -> int:
+    """The launches of the kernel wrapper ``name`` so far in this process: its
+    tally ``<name>.launches`` (``ops/_launch.py``). A count over a call is
+    the difference of two readings."""
+    return profiling.tallies().get(name + ".launches", 0)
 
 
 def device_phase():
@@ -478,9 +486,9 @@ def knn_pair_cases(dev):
     for name, make in KNN_PAIR_CASES.items():
         world, valid, i_idx, j_idx = make(rng)
         args = [torch.tensor(a, device=dev) for a in (world, valid, i_idx, j_idx)]
-        before = knn_mod.knn_pairs.launches
+        before = kernel_launches("knn_pairs")
         d_k, i_k = knn_mod.knn_pairs(*args)
-        launched = knn_mod.knn_pairs.launches - before
+        launched = kernel_launches("knn_pairs") - before
         d_r, i_r = knn_mod.knn_pairs_reference(*args)
         torch.cuda.synchronize()
         check(launched == 1, f"knn_pairs {name}: {launched} launches, not 1")
@@ -516,12 +524,12 @@ def replay_phase(dev):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
-    knn_mod.knn.launches = 0
+    before = kernel_launches("knn")
     t0 = time.perf_counter()
     out = est.replay(*args)
     torch.cuda.synchronize()
     ms_per_kf = 1e3 * (time.perf_counter() - t0) / N_KEYFRAMES
-    launches = knn_mod.knn.launches
+    launches = kernel_launches("knn") - before
 
     check(launches == N_KEYFRAMES,
           f"knn kernel launched {launches} times in {N_KEYFRAMES} keyframes")
@@ -808,13 +816,13 @@ def sms1_phase(dev):
         return batch_mod.optimize_batch_sms1_imu(cfg, prob, sms, chain, thresholds=thresholds,
                                                  lm_iters=sc["lm_iters"], solver=sc["solver"])
 
-    knn_mod.knn_pairs.launches = 0
+    before = kernel_launches("knn_pairs")
     assoc_s, sms = _sync_s(lambda: batch_mod.build_sms1(cfg, ep.scan, ep.scan_valid, p_odo,
                                                         q_odo, device=dev))
     chain_s, chain = _sync_s(lambda: batch_mod.build_imu_chain(
         cfg, ep.imu_acc, ep.imu_gyr, ep.imu_dt, ep.imu_valid, device=dev))
     warm_s, out1 = _sync_s(solve)
-    launches = knn_mod.knn_pairs.launches
+    launches = kernel_launches("knn_pairs") - before
     want = -(-n_pairs // batch_mod.SMS1_CHUNK)
     check(launches == want, f"knn_pairs launched {launches} times, the association's "
                             f"chunking says {want}")
@@ -914,9 +922,10 @@ def pipeline_phase(dev, level=0):
                                    epoch_stride=sc["epoch_stride"], seed=sc["gnss_seed"])
     ep.anchor_ecef = anchor
     with tempfile.TemporaryDirectory() as tmp:
-        knn_mod.knn.launches = knn_mod.knn_pairs.launches = 0
+        before = kernel_launches("knn"), kernel_launches("knn_pairs")
         run_s, res = _sync_s(lambda: run_pipeline(ep, cfg, out_dir=tmp, device=dev))
-        launches, pair_launches = knn_mod.knn.launches, knn_mod.knn_pairs.launches
+        launches = kernel_launches("knn") - before[0]
+        pair_launches = kernel_launches("knn_pairs") - before[1]
         rows = {name: np.loadtxt(os.path.join(tmp, name + ".csv"), delimiter=",", ndmin=2,
                                  skiprows=3 if name.endswith("cov") else 0)
                 for name in ("tc_sw_result", "tc_batch_result", "tc_batch_cov", "lc_result")}
@@ -1087,11 +1096,11 @@ def fusion_phase(dev):
                                    epoch_stride=sc["epoch_stride"], seed=sc["seed"])
     buf = io.StringIO()
     with _timed_fusion() as fusion_s, contextlib.redirect_stdout(buf):
-        knn_mod.knn.launches = 0
+        before = kernel_launches("knn")
         run_s, (p, q) = _sync_s(lambda: pipeline.replay_with_backend_fusion(
             cfg, ep, ep.to_inputs(dev), anchor, 0.0, station, every=sc["every"],
             fusion_span=sc["fusion_span"], debug=True))
-        launches = knn_mod.knn.launches
+        launches = kernel_launches("knn") - before
     lines = buf.getvalue().splitlines()
     # (The plain version on the CPU launches nothing: the CPU rehearsal.)
     check(dev.type != "cuda" or launches == T,
@@ -1137,10 +1146,10 @@ def loop_phase(dev):
                                       time_thresh=est.lc_time_thres)
     check(np.array_equal(np.array([tuple(c) for c in cands]).reshape(-1, 2), fx["cands"]),
           f"loop candidates {cands} differ from JAX's {fx['cands'].tolist()}")
-    knn_mod.knn.launches = 0
+    before = kernel_launches("knn")
     run_s, (p, q_out, n_edges) = _sync_s(
         lambda: pipeline.apply_loop_closure(cfg, ep, p_drift, q, device=dev))
-    launches = knn_mod.knn.launches
+    launches = kernel_launches("knn") - before
     check(dev.type != "cuda" or launches == 3 * len(cands),
           f"knn launched {launches} times for {len(cands)} candidates, not 3 each")
     check(n_edges == int(fx["n_edges"]), f"{n_edges} loop edges, JAX {int(fx['n_edges'])}")
@@ -1331,11 +1340,11 @@ def raw_input_phase(dev):
               f"({RAYCAST_WORKERS} host processes; host work, not the pipeline's), digest equal to "
               f"the fixture's; bz2 bag {bag_mb:.1f} MiB written in {bag_s:.1f} s")
         rec = {}
-        knn_mod.knn.launches = 0
+        before = kernel_launches("knn")
         with _Recorder(lidar_odometry) as odo_calls:
             ingest_s, ep = _sync_s(lambda: ingest.episode_from_rosbag(
                 path, cfg, n_cols=int(fx["n_cols"]), device=dev, record=rec))
-        odo_launches = knn_mod.knn.launches
+        odo_launches = kernel_launches("knn") - before
     check(dev.type != "cuda" or odo_launches == 2 * n,
           f"knn launched {odo_launches} times in the odometry of {n} frames, not 2 each")
 
@@ -1394,9 +1403,9 @@ def raw_input_phase(dev):
 
     # Stage 1 on the ingested episode.
     with tempfile.TemporaryDirectory() as tmp, _Recorder(sw_mod) as sw_calls:
-        knn_mod.knn.launches = 0
+        before = kernel_launches("knn")
         run_s, res = _sync_s(lambda: run_pipeline(ep, cfg, out_dir=tmp, device=dev))
-        sw_launches = knn_mod.knn.launches
+        sw_launches = kernel_launches("knn") - before
         rows = np.loadtxt(os.path.join(tmp, "tc_sw_result.csv"), delimiter=",", ndmin=2)
     check(dev.type != "cuda" or sw_launches == T,
           f"knn launched {sw_launches} times in {T} keyframes of the raw-input replay")
@@ -1546,10 +1555,10 @@ def gnss_batch_phase(dev, fx, drive, g):
     s2, (p2, q2, c2) = _sync_s(lambda: solve("direct"))
     check(torch.equal(p1, p2) and torch.equal(q1, q2) and c1 == c2,
           "two Doppler batch solves on the card differ")
-    band_chol_mod.band_cholesky.launches = band_chol_mod.band_cholesky_solve.launches = 0
+    before = kernel_launches("band_cholesky"), kernel_launches("band_cholesky_solve")
     s3, (p3, q3, _) = _sync_s(lambda: solve("chol_pcg"))
-    chol_launches = band_chol_mod.band_cholesky.launches
-    solve_launches = band_chol_mod.band_cholesky_solve.launches
+    chol_launches = kernel_launches("band_cholesky") - before[0]
+    solve_launches = kernel_launches("band_cholesky_solve") - before[1]
     check(dev.type != "cuda" or chol_launches == n_iter,
           f"band_cholesky launched {chol_launches} times in {n_iter} chol_pcg LM iterations")
     check(dev.type != "cuda" or solve_launches == CHOL_PCG_APPLIES * n_iter,
@@ -1803,12 +1812,11 @@ def _gnss_pipeline(dev, cfg, ep, **kw):
     try:
         with tempfile.TemporaryDirectory() as tmp, _timed_fusion() as fusion_s, \
                 contextlib.redirect_stdout(buf), _StepRecorder() as rec:
-            knn_mod.knn.launches = band_chol_mod.band_cholesky.launches = 0
-            band_chol_mod.band_cholesky_solve.launches = 0
+            names = ("knn", "band_cholesky", "band_cholesky_solve")
+            before = [kernel_launches(n) for n in names]
             run_s, res = _sync_s(lambda: run_pipeline(ep, cfg, out_dir=tmp, device=dev, **kw))
-            launches = knn_mod.knn.launches
-            chol_launches = (band_chol_mod.band_cholesky.launches,
-                             band_chol_mod.band_cholesky_solve.launches)
+            launches, n_chol, n_solve = (kernel_launches(n) - b for n, b in zip(names, before))
+            chol_launches = (n_chol, n_solve)
             rows = {n: np.loadtxt(os.path.join(tmp, n + ".csv"), delimiter=",", ndmin=2)
                     for n in ("tc_sw_result", "tc_batch_result")}
     finally:
@@ -2196,10 +2204,10 @@ def batch_variants_phase(dev):
     direct_s, (p, q, z, _) = _sync_s(lambda: atm("direct"))
     rep = [_held(n, a, fx, f"atm_{n}", [f"atm_nudge_d{n}"]) for n, a in zip("pqz", (p, q, z))]
     z_range = (float(z.min()), float(z.max()))
-    band_chol_mod.band_cholesky.launches = band_chol_mod.band_cholesky_solve.launches = 0
+    before = kernel_launches("band_cholesky"), kernel_launches("band_cholesky_solve")
     cp_s, (p, q, z, _) = _sync_s(lambda: atm("chol_pcg"))
-    n_chol = band_chol_mod.band_cholesky.launches
-    n_solve = band_chol_mod.band_cholesky_solve.launches
+    n_chol = kernel_launches("band_cholesky") - before[0]
+    n_solve = kernel_launches("band_cholesky_solve") - before[1]
     check(dev.type != "cuda" or (n_chol == n_iter and n_solve == CHOL_PCG_APPLIES * n_iter),
           f"atm chol_pcg launched band_cholesky {n_chol} and band_cholesky_solve {n_solve} "
           f"times in {n_iter} LM iterations")
@@ -2285,7 +2293,7 @@ def sms1_solvers_phase(dev, ctx, fixture=SMS1_SOLVERS_FIXTURE):
     for solve in ("pose", "imu"):
         for solver in ("pcg", "chol_pcg"):
             key = f"{solve}_{solver}"
-            band_chol_mod.band_cholesky.launches = band_chol_mod.band_cholesky_solve.launches = 0
+            before = kernel_launches("band_cholesky"), kernel_launches("band_cholesky_solve")
             if solve == "pose":
                 secs, out = _sync_s(lambda: batch_mod.optimize_batch_sms1(
                     cfg, prob, sms, thresholds=thresholds, lm_iters=sc["lm_iters"],
@@ -2294,8 +2302,8 @@ def sms1_solvers_phase(dev, ctx, fixture=SMS1_SOLVERS_FIXTURE):
                 secs, out = _sync_s(lambda: batch_mod.optimize_batch_sms1_imu(
                     cfg, prob, sms, chain, thresholds=thresholds, lm_iters=sc["lm_iters"],
                     solver=solver))
-            n_chol = band_chol_mod.band_cholesky.launches
-            n_solve = band_chol_mod.band_cholesky_solve.launches
+            n_chol = kernel_launches("band_cholesky") - before[0]
+            n_solve = kernel_launches("band_cholesky_solve") - before[1]
             want = (n_iter, CHOL_PCG_APPLIES * n_iter) if solver == "chol_pcg" else (0, 0)
             check(dev.type != "cuda" or (n_chol, n_solve) == want,
                   f"level 1 {key}: band kernels launched {(n_chol, n_solve)} times, not {want}")

@@ -13,10 +13,12 @@ trajectory is re-solved against the GNSS double differences
 
 Each stage is a damped Gauss-Newton loop over the block-banded normal
 equations: analytic Jacobians, a deterministic scatter into band storage
-(``solver.banded``) and an exact f64 solve by block cyclic reduction. The
-loop never waits on the host: accept and reject are ``torch.where``s and
-the cost is read once per stage. ``build_problem`` and
-``calibrate_batch_covariance`` are host numpy, as in the JAX package.
+(``solver.banded``) and an exact f64 solve by block cyclic reduction. Every
+solver of this module runs the one loop, ``_lm_loop``, stage after stage in
+the one annealing loop, ``_anneal``, with the same spans. The loop never
+waits on the host: accept and reject are ``torch.where``s and the cost is
+read once per stage. ``build_problem`` and ``calibrate_batch_covariance``
+are host numpy, as in the JAX package.
 
 Level 1 (``sms_fusion_level=1``, at the end of this module) replaces the
 relative-pose rows by binary point-to-plane factors between keyframes i and
@@ -262,9 +264,10 @@ def _check_supported(cfg, solver: str = "direct"):
         raise ValueError("doppler_in_batch needs search_range >= 2 (band half-width 3)")
 
 
-def _rel_rows_raw(p, q, prob: BatchProblem):
-    """Unweighted relative-pose and attitude rows, (T, R, 9). The rolled
-    pairs that wrap around the end are masked by ``rel_valid``."""
+def _rel_residuals(p, q, prob: BatchProblem, w_rel=None):
+    """Relative-pose and attitude rows, (T, R, 9), each times its ``w_rel``
+    where given. The rolled pairs that wrap around the end are masked by
+    ``rel_valid``."""
     rows = []
     for r in range(prob.rel_valid.shape[1]):
         qj = torch.roll(q, -(r + 1), dims=0)
@@ -277,16 +280,12 @@ def _rel_rows_raw(p, q, prob: BatchProblem):
         row = torch.cat([W_ATT * err_q, W_REL_Q * 2.0 * err_q, W_REL_P * err_p], -1)
         rows.append(torch.where(prob.rel_valid[:, r][:, None], row,
                                 torch.zeros_like(row)))
-    return torch.stack(rows, dim=1)
-
-
-def _rel_residuals(p, q, prob, w_rel=None):
-    rows = _rel_rows_raw(p, q, prob)
+    rows = torch.stack(rows, dim=1)
     return rows if w_rel is None else rows * w_rel[..., None]
 
 
-def _dd_rows_raw(p, prob: BatchProblem, threshold):
-    """Unweighted whitened DD rows, (E, 4, M)."""
+def _dd_residuals(p, prob: BatchProblem, threshold, w_dd=None):
+    """Whitened DD rows, (E, 4, M), times ``w_dd`` where given."""
     left = prob.ep_left
     ratio = prob.ep_ratio[:, None]
     p_local = ratio * p[left] + (1.0 - ratio) * p[left + 1]
@@ -294,11 +293,7 @@ def _dd_rows_raw(p, prob: BatchProblem, threshold):
     r = dd_mod.dd_residual(p_ecef, prob.sat_pos, prob.psr_rov, prob.psr_sta,
                            prob.station_ecef, prob.sv_valid, prob.system,
                            prob.master, prob.whiten, threshold)
-    return torch.where(prob.ep_valid[:, None, None], r, torch.zeros_like(r))
-
-
-def _dd_residuals(p, prob, threshold, w_dd=None):
-    rows = _dd_rows_raw(p, prob, threshold)
+    rows = torch.where(prob.ep_valid[:, None, None], r, torch.zeros_like(r))
     return rows if w_dd is None else rows * w_dd
 
 
@@ -665,13 +660,6 @@ def _scatter_dd(band, grad, p, prob: BatchProblem, threshold, w_dd, robust, plan
     return res, w_dd_rows
 
 
-def _assemble(p, q, prob, threshold, hw, w_rel=None, w_dd=None, plan=None,
-              use_doppler: bool = False):
-    band, grad, _, _, _ = _assemble_core_impl(p, q, prob, threshold, hw,
-                                              w_rel, w_dd, None, plan, use_doppler)
-    return band, grad
-
-
 # --- solves ------------------------------------------------------------------------
 
 def _damp(band, lam, hw: int):
@@ -724,30 +712,61 @@ def solve_batch_once(cfg, prob: BatchProblem, p0, q0, threshold,
 
 
 def _lm_stage(p0, q0, lm_iters: int, hw: int, assemble, step, trial_cost, agree=None):
-    """``lm_iters`` damped Gauss-Newton iterations (``solve_batch_once``,
-    ``optimize_batch_sharded``): ``assemble(p, q)`` → (band, grad, cost,
-    w_rel, w_dd), ``step(band, grad)`` → the step, ``trial_cost(p, q, w_rel,
-    w_dd)`` → the trial point's cost under the frozen weights, and, where
-    given, ``agree(cost, trial cost)`` → the two costs every rank compares.
-    Returns (p, q)."""
-    p, q = p0, q0
-    lam = torch.tensor(1e-4, dtype=F64, device=p0.device)
+    """``_lm_loop`` over (p, q) (``solve_batch_once``, ``optimize_batch_sharded``).
+    Returns (p, q). ``port_bench/reference/batch.py`` wraps it by this name
+    and signature to record each iteration's two costs."""
+    return _lm_loop((p0, q0), lm_iters, hw, assemble, step, _retract, trial_cost, agree)[0]
+
+
+def _lm_loop(state, lm_iters: int, hw: int, assemble, step, retract, trial_cost, agree=None,
+             cost=None):
+    """The LM loop of every batch solve: ``lm_iters`` damped Gauss-Newton
+    iterations from ``state``, a tuple of per-keyframe tensors. λ starts at
+    1e-4, ×0.3 on an accepted step, ×5 on a rejected one, within [1e-9, 1e6].
+
+    ``assemble(*state)`` → (band, grad, cost, *frozen IRLS weights), ``step(band,
+    grad)`` → the step, ``retract(*state, step)`` → the trial, ``trial_cost(*trial,
+    *frozen)``, and, where given, ``agree(cost, trial cost)`` → the costs every
+    rank compares. Given ``cost`` (level 1), the loop carries it: ``assemble``
+    returns (band, grad) and an accepted trial's cost replaces it. Returns
+    (state, the carried cost or None)."""
+    lam = torch.tensor(1e-4, dtype=F64, device=state[0].device)
     for _ in range(lm_iters):
         with profiling.span("batch.assemble"):
-            band, grad, cost_cur, w_rel, w_dd = assemble(p, q)
+            band, grad, *frozen = assemble(*state)
+        current = frozen.pop(0) if cost is None else cost
         _damp(band, lam, hw)
         with profiling.span("batch.linear_solve"):
             dx = step(band, grad)
-        p_new, q_new = _retract(p, q, dx.reshape(-1))
+        trial = retract(*state, dx)
         with profiling.span("batch.trial_cost"):
-            new_cost = trial_cost(p_new, q_new, w_rel, w_dd)
+            trial_c = trial_cost(*trial, *frozen)
         if agree is not None:
-            cost_cur, new_cost = agree(cost_cur, new_cost)
-        better = new_cost < cost_cur
-        p = torch.where(better, p_new, p)
-        q = torch.where(better, q_new, q)
+            current, trial_c = agree(current, trial_c)
+        better = trial_c < current
+        state = tuple(torch.where(better, a, b) for a, b in zip(trial, state))
+        if cost is not None:
+            cost = torch.where(better, trial_c, cost)
         lam = torch.clamp(torch.where(better, lam * 0.3, lam * 5.0), 1e-9, 1e6)
-    return p, q
+    return state, cost
+
+
+def _anneal(start, thresholds, lm_iters, stage):
+    """The annealing loop of every batch solve: ``stage(state, threshold,
+    iters)`` → (*state, cost) per threshold, ``lm_iters`` one count or one a
+    stage, the first state from ``start()``, inside the span ``batch.solve``;
+    each cost read to the host once. Returns (*state, per-stage costs)."""
+    if isinstance(lm_iters, int):
+        lm_iters = (lm_iters,) * len(thresholds)
+    costs = []
+    with profiling.span("batch.solve"):
+        state = start()
+        for th, iters in zip(thresholds, lm_iters):
+            with profiling.span("batch.stage"):
+                *state, cost = stage(tuple(state), th, iters)
+                with profiling.span("batch.cost_read"):
+                    costs.append(float(cost))
+    return (*state, costs)
 
 
 def optimize_batch(cfg, prob: BatchProblem, thresholds=(1e9, 10.0, 8.0, 6.0),
@@ -761,21 +780,17 @@ def optimize_batch(cfg, prob: BatchProblem, thresholds=(1e9, 10.0, 8.0, 6.0),
     to the host once per stage.
     """
     _check_supported(cfg, solver)
-    with profiling.span("batch.solve"):
+
+    def start():
+        nonlocal plan
         if plan is None:
             plan = assembly_plan(prob, cfg.estimator.search_range + 1,
                                  cfg.estimator.doppler_in_batch)
-        p, q = (prob.p_odo, prob.q_odo) if init is None else init
-        if isinstance(lm_iters, int):
-            lm_iters = (lm_iters,) * len(thresholds)
-        costs = []
-        for th, iters in zip(thresholds, lm_iters):
-            with profiling.span("batch.stage"):
-                p, q, cost = solve_batch_once(cfg, prob, p, q, th, iters, pcg_iters,
-                                              solver, robust, plan)
-                with profiling.span("batch.cost_read"):
-                    costs.append(float(cost))
-    return p, q, costs
+        return (prob.p_odo, prob.q_odo) if init is None else init
+
+    return _anneal(start, thresholds, lm_iters,
+                   lambda state, th, iters: solve_batch_once(cfg, prob, *state, th, iters,
+                                                             pcg_iters, solver, robust, plan))
 
 
 def optimize_batch_sharded(cfg, prob: BatchProblem, group=None,
@@ -816,20 +831,16 @@ def optimize_batch_sharded(cfg, prob: BatchProblem, group=None,
         total = comm.sum_in_rank_order(torch.stack([cost, new_cost]))
         return total[0], total[1]
 
-    p, q = prob.p_odo.to(device), prob.q_odo.to(device)
-    costs = []
-    with profiling.span("batch.solve"):
-        for th in thresholds:
-            with profiling.span("batch.stage"):
-                p, q = _lm_stage(p, q, lm_iters, hw,
-                                 lambda p, q: share.assemble(p, q, th, robust),
-                                 lambda band, grad: solve.rows(band, -grad, T),
-                                 lambda p, q, w_rel, w_dd: share.cost(p, q, th, w_rel, w_dd),
-                                 agree)
-                cost = comm.sum_in_rank_order(share.cost(p, q, th))
-                with profiling.span("batch.cost_read"):
-                    costs.append(float(cost))
-    return p, q, costs
+    def stage(state, th, iters):
+        p, q = _lm_stage(*state, iters, hw,
+                         lambda p, q: share.assemble(p, q, th, robust),
+                         lambda band, grad: solve.rows(band, -grad, T),
+                         lambda p, q, w_rel, w_dd: share.cost(p, q, th, w_rel, w_dd),
+                         agree)
+        return p, q, comm.sum_in_rank_order(share.cost(p, q, th))
+
+    p0, q0 = prob.p_odo.to(device), prob.q_odo.to(device)
+    return _anneal(lambda: (p0, q0), thresholds, lm_iters, stage)
 
 
 # --- covariance ------------------------------------------------------------------
@@ -843,22 +854,14 @@ def batch_marginal_covariance(cfg, prob: BatchProblem, p, q, threshold=6.0,
     translations."""
     _check_supported(cfg)
     hw = cfg.estimator.search_range + 1
-    band, _ = _assemble(p, q, prob, threshold, hw, use_doppler=cfg.estimator.doppler_in_batch)
+    band = _assemble_core_impl(p, q, prob, threshold, hw,
+                               use_doppler=cfg.estimator.doppler_in_batch)[0]
     diag = band[:, hw]
     band[:, hw] = diag + (
         jitter * torch.clamp(torch.diagonal(diag, dim1=-2, dim2=-1).sum(-1),
                              min=1.0)[:, None, None]
         * torch.eye(POSE_DOF, dtype=F64, device=p.device))
     return banded.selected_inverse_diag(band)
-
-
-def _dd_rows_jac_eval(p, prob: BatchProblem, threshold, robust: RobustOpts):
-    """Whitened, IRLS-weighted DD rows and their position Jacobians at a
-    fixed trajectory: the raw material of the covariance calibration."""
-    R_el = r_ecef_local(prob.anchor_ecef, prob.yaw_enu_local)
-    E, M = prob.sv_valid.shape
-    w_ones = torch.ones((E, 4 * M), dtype=F64, device=p.device)
-    return _dd_row_jac(p, R_el, prob, threshold, w_ones, robust)
 
 
 def calibrate_batch_covariance(cfg, prob: BatchProblem, p, q, cov,
@@ -884,7 +887,8 @@ def calibrate_batch_covariance(cfg, prob: BatchProblem, p, q, cov,
     if robust is None:
         robust = NO_ROBUST
     T = prob.p_odo.shape[0]
-    res, JP, wf = _dd_rows_jac_eval(p, prob, threshold, robust)
+    R_el = r_ecef_local(prob.anchor_ecef, prob.yaw_enu_local)
+    res, JP, wf = _dd_row_jac(p, R_el, prob, threshold, None, robust)
     res = res.cpu().numpy()
     JP = JP.cpu().numpy()
     wf = wf.cpu().numpy()
@@ -1003,37 +1007,24 @@ def solve_batch_once_atm(cfg, prob: BatchProblem, p0, q0, z0, threshold, lm_iter
     _check_solver(solver)
     est = cfg.estimator
     hw = est.search_range + 1
-    tau, sigma, sigma_abs = est.atm_tau, est.atm_sigma, est.atm_abs_sigma
     if plan is None:
         plan = assembly_plan(prob, hw)
     R_el = r_ecef_local(prob.anchor_ecef, prob.yaw_enu_local)
-    zi = POSE_DOF
-
-    def gm_cost(z):
-        r_gm, r_abs, _, _ = _gm_chain(z, prob.kf_time, tau, sigma, sigma_abs)
-        return 0.5 * (torch.sum(r_gm ** 2) + torch.sum(r_abs ** 2))
 
     def trial_cost(p, q, z, w_rel, w_dd):
         r1 = _rel_residuals(p, q, prob, w_rel)
         r2 = _dd_row_jac(p, R_el, prob, threshold, w_dd, z=z)[0]
-        return 0.5 * (torch.sum(r1 * r1) + torch.sum(r2 * r2)) + gm_cost(z)
+        r_gm, r_abs, _, _ = _gm_chain(z, prob.kf_time, est.atm_tau, est.atm_sigma,
+                                      est.atm_abs_sigma)
+        return (0.5 * (torch.sum(r1 * r1) + torch.sum(r2 * r2))
+                + 0.5 * (torch.sum(r_gm ** 2) + torch.sum(r_abs ** 2)))
 
-    p, q, z = p0, q0, z0
-    lam = torch.tensor(1e-4, dtype=F64, device=p0.device)
-    for _ in range(lm_iters):
-        band, grad, cost_cur, w_rel, w_dd = _atm_system(cfg, prob, p, q, z, threshold, hw,
-                                                        robust, plan)
-        _damp(band, lam, hw)
-        dx = _solve_step(band, grad, solver)
-        p_new = p + dx[:, :3]
-        q_new = quat.normalize(quat.mul(q, quat.exp(dx[:, 3:6])))
-        z_new = z + dx[:, zi]
-        new_cost = trial_cost(p_new, q_new, z_new, w_rel, w_dd)
-        better = new_cost < cost_cur
-        p = torch.where(better, p_new, p)
-        q = torch.where(better, q_new, q)
-        z = torch.where(better, z_new, z)
-        lam = torch.clamp(torch.where(better, lam * 0.3, lam * 5.0), 1e-9, 1e6)
+    (p, q, z), _ = _lm_loop(
+        (p0, q0, z0), lm_iters, hw,
+        lambda p, q, z: _atm_system(cfg, prob, p, q, z, threshold, hw, robust, plan),
+        lambda band, grad: _solve_step(band, grad, solver),
+        lambda p, q, z, dx: (*_retract(p, q, dx[:, :POSE_DOF]), z + dx[:, POSE_DOF]),
+        trial_cost)
     ones_rel = torch.ones(prob.rel_valid.shape, dtype=F64, device=p0.device)
     ones_dd = torch.ones(prob.ep_valid.shape + prob.master.shape[1:] + prob.sv_valid.shape[1:],
                          dtype=F64, device=p0.device)
@@ -1053,16 +1044,10 @@ def optimize_batch_atm(cfg, prob: BatchProblem, thresholds=(1e9, 10.0, 8.0, 6.0)
             "(silently dropping the factors would confound atm A/Bs).")
     _check_solver(solver)
     plan = assembly_plan(prob, cfg.estimator.search_range + 1)
-    p, q = prob.p_odo, prob.q_odo
-    z = torch.zeros(p.shape[0], dtype=F64, device=p.device)
-    if isinstance(lm_iters, int):
-        lm_iters = (lm_iters,) * len(thresholds)
-    costs = []
-    for th, iters in zip(thresholds, lm_iters):
-        p, q, z, cost = solve_batch_once_atm(cfg, prob, p, q, z, th, iters, solver, robust,
-                                             plan)
-        costs.append(float(cost))
-    return p, q, z, costs
+    z0 = torch.zeros(prob.p_odo.shape[0], dtype=F64, device=prob.p_odo.device)
+    return _anneal(lambda: (prob.p_odo, prob.q_odo, z0), thresholds, lm_iters,
+                   lambda state, th, iters: solve_batch_once_atm(cfg, prob, *state, th, iters,
+                                                                 solver, robust, plan))
 
 
 # --- the reference's re-solve cadence and the incremental mode --------------------
@@ -1100,13 +1085,6 @@ def _mask_prefix(rel_valid, ep_valid, ep_left, n: int):
     offs = torch.arange(1, R + 1, device=rel_valid.device)
     rel_valid = rel_valid & (idx < n)[:, None] & (idx[:, None] + offs[None, :] < n)
     return rel_valid, ep_valid & (ep_left + 1 < n)
-
-
-def _prep_prefix(p_cur, q_cur, kf_dt, ep_valid, ep_left, n: int, R: int):
-    """An incremental re-solve's relatives, re-derived from the corrected
-    trajectory, and both masks of the prefix [0, n)."""
-    rel_dp, rel_dq, rel_valid = derive_relatives(p_cur, q_cur, kf_dt, R)
-    return (rel_dp, rel_dq, *_mask_prefix(rel_valid, ep_valid, ep_left, n))
 
 
 def _original_hops(prob: BatchProblem):
@@ -1238,12 +1216,9 @@ def optimize_batch_incremental(cfg, prob: BatchProblem, kf_time, every: int = 50
         n_prev = n
         p_t = torch.as_tensor(p_cur, device=dev)
         q_t = torch.as_tensor(q_cur, device=dev)
-        if rederive:
-            rel_dp, rel_dq, rel_valid, ep_valid = _prep_prefix(p_t, q_t, kf_dt, prob.ep_valid,
-                                                               prob.ep_left, n, R)
-        else:
-            rel_valid, ep_valid = _mask_prefix(prob.rel_valid, prob.ep_valid, prob.ep_left, n)
-            rel_dp, rel_dq = prob.rel_dp, prob.rel_dq
+        rel_dp, rel_dq, rel_valid = (derive_relatives(p_t, q_t, kf_dt, R) if rederive
+                                     else (prob.rel_dp, prob.rel_dq, prob.rel_valid))
+        rel_valid, ep_valid = _mask_prefix(rel_valid, prob.ep_valid, prob.ep_left, n)
         prob_n = prob._replace(p_odo=p_t, q_odo=q_t, rel_dp=rel_dp, rel_dq=rel_dq,
                                rel_valid=rel_valid, ep_valid=ep_valid)
         p_new, q_new, costs = optimize_batch(cfg, prob_n, thresholds=thresholds,
@@ -1303,9 +1278,7 @@ def _lap(timings, key, t0, device):
     ``t0`` to ``timings[key]`` (none for key None); returns the time now."""
     if timings is None:
         return t0
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t = time.perf_counter()
+    t = _synced_clock(device)
     if key is not None:
         timings[key] = timings.get(key, 0.0) + t - t0
     return t
@@ -1389,7 +1362,7 @@ def build_sms1(cfg, scans, scans_valid, p_odo, q_odo, chunk: int = SMS1_CHUNK, *
 
 
 def _att_residuals(p, q, prob: BatchProblem):
-    """(T, R, 3) relative-attitude rows: the first three of ``_rel_rows_raw``."""
+    """(T, R, 3) relative-attitude rows: the first three of ``_rel_residuals``."""
     rows = []
     for r in range(prob.rel_valid.shape[1]):
         qj = torch.roll(q, -(r + 1), dims=0)
@@ -1485,23 +1458,15 @@ def _assemble_sms1_pose(p, q, prob: BatchProblem, sms: Sms1Data, threshold, hw: 
 
 def _sms1_solve_once(cfg, prob: BatchProblem, sms: Sms1Data, p0, q0, threshold,
                      lm_iters: int, plan: AssemblyPlan, solver: str = "direct"):
-    """One annealing stage of the pose-only level-1 solve: ``lm_iters``
-    damped Gauss-Newton iterations, each step by ``_solve_step``, no host
-    sync. Returns (p, q, cost)."""
+    """One annealing stage of the pose-only level-1 solve, ``lm_iters`` of
+    ``_lm_loop``, each step by ``_solve_step``. Returns (p, q, cost)."""
     hw = cfg.estimator.search_range + 1
-    p, q = p0, q0
-    lam = torch.tensor(1e-4, dtype=F64, device=p0.device)
-    cost = _sms1_cost(p, q, prob, sms, threshold)
-    for _ in range(lm_iters):
-        band, grad = _assemble_sms1_pose(p, q, prob, sms, threshold, hw, plan)
-        _damp(band, lam, hw)
-        p_new, q_new = _retract(p, q, _solve_step(band, grad, solver).reshape(-1))
-        new_cost = _sms1_cost(p_new, q_new, prob, sms, threshold)
-        better = new_cost < cost
-        p = torch.where(better, p_new, p)
-        q = torch.where(better, q_new, q)
-        cost = torch.where(better, new_cost, cost)
-        lam = torch.clamp(torch.where(better, lam * 0.3, lam * 5.0), 1e-9, 1e6)
+    (p, q), cost = _lm_loop(
+        (p0, q0), lm_iters, hw,
+        lambda p, q: _assemble_sms1_pose(p, q, prob, sms, threshold, hw, plan),
+        lambda band, grad: _solve_step(band, grad, solver), _retract,
+        lambda p, q: _sms1_cost(p, q, prob, sms, threshold),
+        cost=_sms1_cost(p0, q0, prob, sms, threshold))
     return p, q, cost
 
 
@@ -1514,12 +1479,9 @@ def optimize_batch_sms1(cfg, prob: BatchProblem, sms: Sms1Data,
     costs)."""
     _check_solver(solver)
     plan = assembly_plan(prob, cfg.estimator.search_range + 1)
-    p, q = prob.p_odo, prob.q_odo
-    costs = []
-    for th in thresholds:
-        p, q, cost = _sms1_solve_once(cfg, prob, sms, p, q, th, lm_iters, plan, solver)
-        costs.append(float(cost))
-    return p, q, costs
+    return _anneal(lambda: (prob.p_odo, prob.q_odo), thresholds, lm_iters,
+                   lambda state, th, iters: _sms1_solve_once(cfg, prob, sms, *state, th, iters,
+                                                             plan, solver))
 
 
 class ImuChainData(NamedTuple):
@@ -1576,12 +1538,6 @@ def _imu_chain_residuals_at(xi, xj, chain: ImuChainData, gravity):
     return torch.where(chain.valid[:, None], r, torch.zeros_like(r))
 
 
-def _imu_chain_residuals(p, q, v, ba, bg, chain: ImuChainData, gravity):
-    x = (p, q, v, ba, bg)
-    return _imu_chain_residuals_at(tuple(a[:-1] for a in x), tuple(a[1:] for a in x),
-                                   chain, gravity)
-
-
 def _imu_chain_jacobians(p, q, v, ba, bg, chain: ImuChainData, gravity):
     """Every edge's whitened residual (T-1, 15) and its Jacobians (T-1, 15,
     15) with respect to the tangents of keyframes k and k + 1.
@@ -1609,7 +1565,9 @@ def _imu_chain_jacobians(p, q, v, ba, bg, chain: ImuChainData, gravity):
 
 
 def _sms1_imu_cost(p, q, v, ba, bg, prob, sms, chain, threshold, gravity):
-    r_imu = _imu_chain_residuals(p, q, v, ba, bg, chain, gravity)
+    x = (p, q, v, ba, bg)
+    r_imu = _imu_chain_residuals_at(tuple(a[:-1] for a in x), tuple(a[1:] for a in x),
+                                    chain, gravity)
     return _sms1_cost(p, q, prob, sms, threshold) + 0.5 * torch.sum(r_imu * r_imu)
 
 
@@ -1637,23 +1595,17 @@ def imu_chain_plan(T: int, hw: int, device) -> tuple:
 
 def _sms1_imu_solve_once(cfg, prob, sms, chain, state, threshold, lm_iters: int,
                          plan, imu_plan, solver: str = "direct"):
-    """One annealing stage of the 15-dof level-1 solve, each step by
-    ``_solve_step``. ``state`` is (p, q, v, ba, bg); returns (p, q, v, ba,
-    bg, cost), no host sync."""
+    """One annealing stage of the 15-dof level-1 solve from ``state`` = (p, q,
+    v, ba, bg), each step by ``_solve_step``. Returns (p, q, v, ba, bg, cost)."""
     hw = cfg.estimator.search_range + 1
     gravity = _imu_params(cfg).gravity_vec(prob.p_odo.device)
-    lam = torch.tensor(1e-4, dtype=F64, device=prob.p_odo.device)
-    cost = _sms1_imu_cost(*state, prob, sms, chain, threshold, gravity)
-    for _ in range(lm_iters):
-        band, grad = _sms1_imu_system(*state, prob, sms, chain, threshold, hw, plan,
-                                      imu_plan, gravity)
-        _damp(band, lam, hw)
-        new = _retract15(*state, _solve_step(band, grad, solver).reshape(-1))
-        new_cost = _sms1_imu_cost(*new, prob, sms, chain, threshold, gravity)
-        better = new_cost < cost
-        state = tuple(torch.where(better, a, b) for a, b in zip(new, state))
-        cost = torch.where(better, new_cost, cost)
-        lam = torch.clamp(torch.where(better, lam * 0.3, lam * 5.0), 1e-9, 1e6)
+    state, cost = _lm_loop(
+        state, lm_iters, hw,
+        lambda *s: _sms1_imu_system(*s, prob, sms, chain, threshold, hw, plan, imu_plan,
+                                    gravity),
+        lambda band, grad: _solve_step(band, grad, solver), _retract15,
+        lambda *s: _sms1_imu_cost(*s, prob, sms, chain, threshold, gravity),
+        cost=_sms1_imu_cost(*state, prob, sms, chain, threshold, gravity))
     return (*state, cost)
 
 
@@ -1683,10 +1635,6 @@ def optimize_batch_sms1_imu(cfg, prob: BatchProblem, sms: Sms1Data, chain: ImuCh
     v = (initial_velocity(prob) if v0 is None
          else torch.as_tensor(np.asarray(v0, float), dtype=F64, device=dev))
     zeros = torch.zeros((T, 3), dtype=F64, device=dev)
-    state = (prob.p_odo, prob.q_odo, v, zeros, zeros)
-    costs = []
-    for th in thresholds:
-        *state, cost = _sms1_imu_solve_once(cfg, prob, sms, chain, tuple(state), th,
-                                            lm_iters, plan, imu_plan, solver)
-        costs.append(float(cost))
-    return (*state, costs)
+    return _anneal(lambda: (prob.p_odo, prob.q_odo, v, zeros, zeros), thresholds, lm_iters,
+                   lambda s, th, iters: _sms1_imu_solve_once(cfg, prob, sms, chain, s, th,
+                                                             iters, plan, imu_plan, solver))

@@ -101,10 +101,8 @@ def band_cholesky(band, jitter: float = 0.0):
     if band.shape[1] % 2 != 1 or band.shape[2] != band.shape[3]:
         raise ValueError(f"band_cholesky: band must be (T, 2hw+1, D, D), got {tuple(band.shape)}")
     _check_contiguous("band_cholesky", band)
-    if not band.is_cuda:
-        if band.device.type == "cpu":
-            return block_cholesky(band, jitter=jitter)
-        raise ValueError(f"band_cholesky: no kernel for device {band.device}")
+    if not _launch.use_kernel("band_cholesky", band):
+        return block_cholesky(band, jitter=jitter)
     T, Bw, D, _ = band.shape
     hw = (Bw - 1) // 2
     _check_kernel_shape("band_cholesky", D, hw)
@@ -113,11 +111,7 @@ def band_cholesky(band, jitter: float = 0.0):
     _launch.launch("band_cholesky", _library(D, hw).glio_band_chol_f32,
                    band.get_device(),
                    band.data_ptr(), T, hw, D, float(jitter), out.data_ptr())
-    band_cholesky.launches += 1
     return out
-
-
-band_cholesky.launches = 0
 
 
 def band_cholesky_solve(Lb, b):
@@ -135,10 +129,8 @@ def band_cholesky_solve(Lb, b):
     _check_contiguous("band_cholesky_solve", Lb, b)
     if b.device != Lb.device:
         raise ValueError(f"band_cholesky_solve: Lb on {Lb.device}, b on {b.device}")
-    if not Lb.is_cuda:
-        if Lb.device.type == "cpu":
-            return block_cholesky_solve(Lb, b)
-        raise ValueError(f"band_cholesky_solve: no kernel for device {Lb.device}")
+    if not _launch.use_kernel("band_cholesky_solve", Lb):
+        return block_cholesky_solve(Lb, b)
     _check_kernel_shape("band_cholesky_solve", D, HW1 - 1)
     _check_aligned("band_cholesky_solve", Lb)
     x = torch.empty((T, D), dtype=torch.float32, device=Lb.device)
@@ -146,8 +138,4 @@ def band_cholesky_solve(Lb, b):
                    _library(D, HW1 - 1).glio_band_chol_solve_f32,
                    Lb.get_device(),
                    Lb.data_ptr(), b.data_ptr(), T, HW1 - 1, D, x.data_ptr())
-    band_cholesky_solve.launches += 1
     return x
-
-
-band_cholesky_solve.launches = 0

@@ -83,8 +83,4 @@ def preintegrate(acc, gyr, dt, valid, ba, bg, acc0, gyr0, noise_cov):
         _launch.launch("imu_preint", _library(), acc.get_device(),
                        *(t.data_ptr() for t in args), n_edges, n,
                        *(t.data_ptr() for t in outs))
-        preintegrate.launches += 1
     return outs
-
-
-preintegrate.launches = 0

@@ -160,10 +160,8 @@ def knn(query, query_valid, points, points_valid, k: int = 5):
     _check(query, query_valid, points, points_valid)
     if profiling.recording():
         _WORK.append((query.shape[0], points.shape[0], query_valid, points_valid))
-    if not query.is_cuda:
-        if query.device.type == "cpu":
-            return knn_reference(query, query_valid, points, points_valid, k)
-        raise ValueError(f"knn: no kernel for device {query.device}")
+    if not _launch.use_kernel("knn", query):
+        return knn_reference(query, query_valid, points, points_valid, k)
     if k != K_SUPPORTED:
         raise ValueError(f"knn: the CUDA kernel is built for k={K_SUPPORTED}, got k={k}")
     Q, N = query.shape[0], points.shape[0]
@@ -175,11 +173,9 @@ def knn(query, query_valid, points, points_valid, k: int = 5):
     _launch.launch("knn", _library(), index, query.data_ptr(), query_valid.data_ptr(),
                    points.data_ptr(), points_valid.data_ptr(), Q, N, cluster, split,
                    out_d.data_ptr(), out_i.data_ptr())
-    knn.launches += 1
     return out_d, out_i
 
 
-knn.launches = 0
 _WORK = profiling.counter("knn")
 
 
@@ -245,10 +241,8 @@ def knn_pairs(world, world_valid, i_idx, j_idx, k: int = 5):
     range is a device-side fault.
     """
     _check_pairs(world, world_valid, i_idx, j_idx)
-    if not world.is_cuda:
-        if world.device.type == "cpu":
-            return knn_pairs_reference(world, world_valid, i_idx, j_idx, k)
-        raise ValueError(f"knn_pairs: no kernel for device {world.device}")
+    if not _launch.use_kernel("knn_pairs", world):
+        return knn_pairs_reference(world, world_valid, i_idx, j_idx, k)
     if k != K_SUPPORTED:
         raise ValueError(f"knn_pairs: the CUDA kernel is built for k={K_SUPPORTED}, got k={k}")
     (F, S, _), B = world.shape, i_idx.shape[0]
@@ -262,8 +256,4 @@ def knn_pairs(world, world_valid, i_idx, j_idx, k: int = 5):
     _launch.launch("knn_pairs", _library("glio_knn5_pairs_f32", 12), index, world.data_ptr(),
                    world_valid.data_ptr(), i_idx.data_ptr(), j_idx.data_ptr(), F, S, B, cluster,
                    split, out_d.data_ptr(), out_i.data_ptr())
-    knn_pairs.launches += 1
     return out_d, out_i
-
-
-knn_pairs.launches = 0

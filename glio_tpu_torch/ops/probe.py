@@ -18,7 +18,9 @@ Prints ``CUDA-OK`` and exits 0 when both pass, ``CUDA-DEAD`` and exits 1
 when the copy fails (the toolchain itself is broken), ``CUDA-PARTIAL`` and
 exits 2 when only the kNN fails. There is no CPU mode: without a CUDA
 device it prints ``CUDA-DEAD`` and exits 1. A last line ``launches:
-copy_f32=N knn5_f32=N`` reports the kernel launches the children counted.
+copy_f32=N knn5_f32=N`` reports the kernel launches each child counted, the
+difference of its tallies ``copy.launches`` / ``knn.launches``
+(``profiling.tallies()``) across its call.
 
 ``copy`` is the kernel's wrapper; on a CPU tensor it runs ``copy_reference``
 (``x.clone()``), on a CUDA tensor it launches the kernel or raises.
@@ -35,6 +37,7 @@ import sys
 
 import torch
 
+from ..utils import profiling
 from . import _build, _launch
 
 PROBE_SHAPE = (8, 128)
@@ -87,31 +90,30 @@ def copy(x):
         raise TypeError(f"copy: x must be torch.float32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("copy: x must be contiguous")
-    if not x.is_cuda:
-        if x.device.type == "cpu":
-            return copy_reference(x)
-        raise ValueError(f"copy: no kernel for device {x.device}")
+    if not _launch.use_kernel("copy", x):
+        return copy_reference(x)
     y = torch.empty_like(x)
     index = x.get_device()
     x_ptr, y_ptr = x.data_ptr(), y.data_ptr()
     head, body, tail, blocks = copy_plan(x_ptr, y_ptr, 4 * x.numel(), _launch.sm_count(index))
     _launch.launch("copy", _library(), index, x_ptr, y_ptr, head, body, tail, blocks,
                    STAGE_BYTES)
-    copy.launches += 1
     return y
 
 
-copy.launches = 0
+def _launches(name: str) -> int:
+    return profiling.tallies().get(name + ".launches", 0)
 
 
 def _try_copy(q):
     """Child: build the copy kernel, copy the probe's block, check it."""
     x = torch.arange(PROBE_SHAPE[0] * PROBE_SHAPE[1], dtype=torch.float32,
                      device="cuda").reshape(PROBE_SHAPE)
+    before = _launches("copy")
     y = copy(x)
     torch.cuda.synchronize()
     ok = torch.equal(y, x) and float(y[3, 17]) == float(x[3, 17])
-    q.put(("copy-ok" if ok else "copy-bad", copy.launches))
+    q.put(("copy-ok" if ok else "copy-bad", _launches("copy") - before))
 
 
 def _try_knn(q):
@@ -124,11 +126,12 @@ def _try_knn(q):
     points[:, 0] = torch.arange(128, dtype=torch.float32, device=dev)
     points_valid = torch.ones(128, dtype=torch.bool, device=dev)
     args = (query, query_valid, points, points_valid)
+    before = _launches("knn")
     d, i = knn_mod.knn(*args)
     d_r, i_r = knn_mod.knn_reference(*args)
     torch.cuda.synchronize()
     ok = torch.equal(d, d_r) and torch.equal(i, i_r)
-    q.put(("ok" if ok else "knn-bad", knn_mod.knn.launches))
+    q.put(("ok" if ok else "knn-bad", _launches("knn") - before))
 
 
 def _bounded(target, timeout_s: float):

@@ -28,15 +28,14 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 from glio_tpu_torch.ops import band_chol  # noqa: E402
 from glio_tpu_torch.solver import banded  # noqa: E402
+from glio_tpu_torch.utils import profiling  # noqa: E402
 
 
 def plain_solve(Lb, b):
-    """The plain version, counted as the phase counts the kernel."""
-    plain_solve.launches += 1
+    """The plain version, counted as the phase counts the kernel: in the
+    tally ``band_cholesky_solve.launches``."""
+    profiling.tally("band_cholesky_solve.launches")
     return banded.block_cholesky_solve(Lb, b)
-
-
-plain_solve.launches = 0
 
 
 def rel(a, ref):

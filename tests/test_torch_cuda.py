@@ -47,14 +47,23 @@ def cuda():
     return torch.device("cuda")
 
 
+def _launches(name):
+    """The launches of the kernel wrapper ``name`` so far: its tally."""
+    return profiling.tallies().get(name + ".launches", 0)
+
+
+def _band_launches():
+    return _launches("band_cholesky"), _launches("band_cholesky_solve")
+
+
 @pytest.mark.parametrize("case", sorted(KNN_CASES))
 def test_kernel_equals_plain_version(cuda, case):
     args = [torch.tensor(a, device=cuda) for a in KNN_CASES[case](np.random.default_rng(0))]
-    before = knn_mod.knn.launches
+    before = _launches("knn")
     d_k, i_k = knn_mod.knn(*args)
     d_r, i_r = knn_mod.knn_reference(*args)
     torch.cuda.synchronize()
-    assert knn_mod.knn.launches == before + 1
+    assert _launches("knn") == before + 1
     assert torch.equal(i_k, i_r)
     assert torch.equal(d_k, d_r)
 
@@ -119,10 +128,10 @@ def test_copy_kernel_equals_plain_version(cuda, case):
     if case == "more_chunks_than_sms_ragged":
         sms = torch.cuda.get_device_properties(cuda).multi_processor_count
         assert 4 * x.numel() > sms * probe.STAGE_BYTES
-    before = probe.copy.launches
+    before = _launches("copy")
     y = probe.copy(x)
     torch.cuda.synchronize()
-    assert probe.copy.launches == before + 1
+    assert _launches("copy") == before + 1
     bits = x.view(torch.int32)
     assert torch.equal(y.view(torch.int32), bits)
     assert torch.equal(probe.copy_reference(x).view(torch.int32), bits)
@@ -285,9 +294,9 @@ def test_band_cholesky_kernel_matches_plain_version(cuda, D, broken):
     (the pose blocks), a diagonally dominant band at D = 7 (pose and zenith
     bias) and 15 (level 1's IMU-chain states), 300 block rows each."""
     band = _band_at(D, cuda, broken)
-    before = band_chol.band_cholesky.launches
+    before = _launches("band_cholesky")
     L_k = band_chol.band_cholesky(band, 3e-4)
-    assert band_chol.band_cholesky.launches == before + 1
+    assert _launches("band_cholesky") == before + 1
     _check_factor(band, L_k, broken)
 
 
@@ -311,9 +320,9 @@ def test_band_cholesky_solve_kernel_matches_plain_version(cuda, D, broken):
     eye_row = torch.zeros_like(Lb[0])
     eye_row[0] = torch.eye(D, device=cuda)
     assert torch.equal(Lb[150], eye_row) == broken
-    before = band_chol.band_cholesky_solve.launches
+    before = _launches("band_cholesky_solve")
     x_k = band_chol.band_cholesky_solve(Lb, b)
-    assert band_chol.band_cholesky_solve.launches == before + 1
+    assert _launches("band_cholesky_solve") == before + 1
     _check_solve(Lb, b, x_k)
 
 
@@ -325,13 +334,13 @@ def test_band_kernels_on_short_chains(cuda, D, T):
     block row T // 2 broken where T > 1."""
     broken = T > 1
     band = _band_at(D, cuda, broken, T=T)
-    before = band_chol.band_cholesky.launches, band_chol.band_cholesky_solve.launches
+    before = _band_launches()
     L_p, bad = _check_factor(band, band_chol.band_cholesky(band, 3e-4), broken)
     Lb = _identity_rows(L_p, bad)
     b = torch.tensor(np.random.default_rng(T).normal(size=(T, D)), dtype=torch.float32,
                      device=cuda)
     _check_solve(Lb, b, band_chol.band_cholesky_solve(Lb, b))
-    after = band_chol.band_cholesky.launches, band_chol.band_cholesky_solve.launches
+    after = _band_launches()
     assert after == (before[0] + 1, before[1] + 1)
 
 
@@ -349,18 +358,18 @@ def test_band_kernels_refuse_unaligned_views(cuda):
         view.copy_(x)
         assert view.is_contiguous() and view.data_ptr() % 16 != 0
         return view
-    before = band_chol.band_cholesky.launches, band_chol.band_cholesky_solve.launches
+    before = _band_launches()
     with pytest.raises(ValueError):
         band_chol.band_cholesky(shifted(band_s), 3e-4)
     with pytest.raises(ValueError):
         band_chol.band_cholesky_solve(shifted(M.Lb), (g * M.s).to(torch.float32))
-    assert (band_chol.band_cholesky.launches, band_chol.band_cholesky_solve.launches) == before
+    assert _band_launches() == before
 
 
 def test_band_kernels_refuse_unbuilt_shapes_on_card(cuda):
     """D = 8 and D = 15 at hw = 9 (past its shared memory): the wrappers
     raise, launching nothing."""
-    before = band_chol.band_cholesky.launches, band_chol.band_cholesky_solve.launches
+    before = _band_launches()
     for D, hw in ((8, 3), (15, 9)):
         band = spd_band(20, hw, D, device=cuda)
         with pytest.raises(ValueError):
@@ -368,7 +377,7 @@ def test_band_kernels_refuse_unbuilt_shapes_on_card(cuda):
         with pytest.raises(ValueError):
             band_chol.band_cholesky_solve(torch.zeros((20, hw + 1, D, D), device=cuda),
                                           torch.zeros((20, D), device=cuda))
-    assert (band_chol.band_cholesky.launches, band_chol.band_cholesky_solve.launches) == before
+    assert _band_launches() == before
 
 
 def test_atm_chol_pcg_on_card_matches_cpu(cuda):
@@ -401,11 +410,11 @@ def test_chol_pcg_on_card_matches_cpu(cuda):
 @pytest.mark.parametrize("case", sorted(KNN_PAIR_CASES))
 def test_knn_pairs_kernel_equals_plain_version(cuda, case):
     args = [torch.tensor(a, device=cuda) for a in KNN_PAIR_CASES[case](np.random.default_rng(0))]
-    before = knn_mod.knn_pairs.launches
+    before = _launches("knn_pairs")
     d_k, i_k = knn_mod.knn_pairs(*args)
     d_r, i_r = knn_mod.knn_pairs_reference(*args)
     torch.cuda.synchronize()
-    assert knn_mod.knn_pairs.launches == before + 1
+    assert _launches("knn_pairs") == before + 1
     assert torch.equal(i_k, i_r)
     assert torch.equal(d_k, d_r)
 
@@ -433,12 +442,12 @@ def test_imu_preint_kernel_matches_loop(cuda, case):
     JAX (the same f64 recurrence, sums taken in another order)."""
     args = [torch.tensor(a, device=cuda)
             for a in IMU_PREINT_CASES[case](np.random.default_rng(0))]
-    before = imu_preint.preintegrate.launches
+    before = _launches("imu_preint")
     tally = profiling.tallies().get("imu.preintegrate.kernel", 0)
     got = timu.preintegrate(*args)
     ref = timu.preintegrate_reference(*args)
     torch.cuda.synchronize()
-    assert imu_preint.preintegrate.launches == before + 1
+    assert _launches("imu_preint") == before + 1
     assert profiling.tallies()["imu.preintegrate.kernel"] == tally + 1
     for name, g, r in zip(timu.Preintegrated._fields, got, ref):
         assert g.shape == r.shape and g.dtype == r.dtype and g.is_cuda, name
@@ -569,14 +578,14 @@ def test_backend_fusion_on_card_matches_cpu(cuda):
                                    epoch_stride=1, seed=21)
     outs = {}
     for dev in ("cpu", cuda):
-        before = knn_mod.knn.launches
+        before = _launches("knn")
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             p, q = pipeline.replay_with_backend_fusion(
                 cfg, ep, ep.to_inputs(dev), anchor, 0.0, station, every=8, fusion_span=16,
                 debug=True)
         outs[str(dev)] = (p, q, reset_decisions(buf.getvalue().splitlines()))
-        launched = knn_mod.knn.launches - before
+        launched = _launches("knn") - before
     assert launched == 24
     (pc, _, dc), (pg, qg, dg) = outs["cpu"], outs[str(cuda)]
     assert dg == dc == [(24, "direct RTK fix")]
@@ -628,10 +637,10 @@ def test_odometry_on_card_matches_cpu(cuda):
     feats = [pre(img, iv) for img, iv in frames]
     scans = torch.stack([f.surf for f in feats])
     valid = torch.stack([f.surf_valid for f in feats])
-    before = knn_mod.knn.launches
+    before = _launches("knn")
     out_g = make_odometry(cfg, cuda)(scans.to(cuda), valid.to(cuda), ep.gt_p[0], ep.gt_q[0])
     torch.cuda.synchronize()
-    assert knn_mod.knn.launches - before == 8
+    assert _launches("knn") - before == 8
     odo_c = make_odometry(cfg, "cpu")
     out_c = odo_c(scans, valid, ep.gt_p[0], ep.gt_q[0])
     spread = max(float((odo_c(scans, valid, ep.gt_p[0] + s * 1e-5, ep.gt_q[0]).p - out_c.p)
@@ -685,10 +694,10 @@ def test_gnss_window_step_on_card_matches_cpu(cuda):
                                    epoch_stride=1, seed=1)
     outs = {}
     for dev in ("cpu", cuda):
-        before = knn_mod.knn.launches
+        before = _launches("knn")
         est = SlidingWindowEstimator(cfg, dev)
         outs[str(dev)] = est(ep.to_inputs(dev), ep.p0, ep.q0, ep.v0, ep.acc0, ep.gyr0)
-        launched = knn_mod.knn.launches - before
+        launched = _launches("knn") - before
     assert launched == 6
     oc, og = outs["cpu"], outs[str(cuda)]
     assert torch.equal(og.n_lidar_factors.cpu(), oc.n_lidar_factors)

@@ -31,6 +31,7 @@ from glio_tpu_torch.eval import pointcloud
 from glio_tpu_torch.models import local_graph, loop_closure
 from glio_tpu_torch.ops import knn as knn_mod
 from glio_tpu_torch.solver import banded, dense
+from glio_tpu_torch.utils import profiling
 
 F64 = torch.float64
 LC_CFG = JCfg().replace(
@@ -137,10 +138,10 @@ def test_verify_loop_matches_jax(circle):
     args = (ep.scan[c.cur], ep.scan_valid[c.cur], ep.scan[j0:j1], ep.scan_valid[j0:j1],
             p[j0:j1], ep.gt_q[j0:j1], p[c.cur], ep.gt_q[c.cur])
     pj, qj, fj, okj = JLC.verify_loop(LC_CFG, *args)
-    before = knn_mod.knn.launches
+    before = profiling.tallies().get("knn.launches", 0)
     pt, qt, ft, okt = loop_closure.verify_loop(convert.config_from_glio(LC_CFG),
                                                *(_t(a) for a in args))
-    assert knn_mod.knn.launches == before                 # the plain version on the CPU
+    assert profiling.tallies().get("knn.launches", 0) == before   # the plain version on the CPU
     assert bool(okt) == bool(okj)
     np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=0, atol=1e-4)
     np.testing.assert_allclose(qt.numpy(), np.asarray(qj), rtol=0, atol=1e-5)

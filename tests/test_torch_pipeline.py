@@ -37,6 +37,7 @@ from glio_tpu_torch import convert
 from glio_tpu_torch.data.simulator import simulate_episode, simulate_gnss_epochs
 from glio_tpu_torch.ops import probe
 from glio_tpu_torch.pipeline import run_pipeline
+from glio_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = GlioConfig().replace(
@@ -158,10 +159,10 @@ def test_probe_exits_1_without_cuda():
 
 def test_copy_on_cpu_is_the_plain_version():
     x = torch.arange(8 * 128, dtype=torch.float32).reshape(8, 128)
-    before = probe.copy.launches
+    before = profiling.tallies().get("copy.launches", 0)
     y = probe.copy(x)
     assert torch.equal(y, x) and y.data_ptr() != x.data_ptr()
-    assert probe.copy.launches == before            # no kernel launched
+    assert profiling.tallies().get("copy.launches", 0) == before   # no kernel launched
     with pytest.raises(TypeError):
         probe.copy(x.double())
     with pytest.raises(ValueError):

@@ -37,6 +37,7 @@ from glio_tpu_torch.lidar import neighbors as tnb
 from glio_tpu_torch.lidar import plane_fit as tpf
 from glio_tpu_torch.models import batch as TB
 from glio_tpu_torch.ops import knn as tknn
+from glio_tpu_torch.utils import profiling
 
 ANCHOR = np.array([-2419233.42, 5385473.13, 2405341.30])
 STATION = np.array([-2414266.92, 5386768.987, 2407460.031])
@@ -129,9 +130,9 @@ def test_knn_pairs_matches_jax_vmap():
 def test_knn_pairs_is_the_plain_version_of_each_pair():
     world, valid = _stack(np.random.default_rng(3), S=77)
     ii, jj = np.array([5, 0, 4], np.int64), np.array([0, 5, 4], np.int64)
-    before = tknn.knn_pairs.launches
+    before = profiling.tallies().get("knn_pairs.launches", 0)
     d, i = tknn.knn_pairs(_t(world), _t(valid), _t(ii), _t(jj))
-    assert tknn.knn_pairs.launches == before                      # no kernel on the CPU
+    assert profiling.tallies().get("knn_pairs.launches", 0) == before   # no kernel on the CPU
     for b in range(3):
         d_r, i_r = tknn.knn_reference(_t(world[ii[b]]), _t(valid[ii[b]]),
                                       _t(world[jj[b]]), _t(valid[jj[b]]))

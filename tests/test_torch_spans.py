@@ -3,8 +3,9 @@ counter, and the spans of the window step and the batch solve, on the CPU.
 
 Off, a span is one shared no-op; on, records nest with parent and unit ids
 on the profiler's clock. One small CPU ``step`` records the seven window
-spans in order, and a small ``optimize_batch`` its stages and each LM
-iteration's three parts.
+spans in order, and each small batch solve (level 0, the zenith bias, level
+1's pose-only and 15-dof solves) its stages and each LM iteration's three
+parts.
 """
 
 import numpy as np
@@ -149,17 +150,59 @@ def test_window_step_records_its_phases_in_order():
     assert len(knn_mod.knn_work()) == 2           # one association a step
 
 
-def test_batch_solve_records_stages_and_iterations():
+@pytest.fixture(scope="module")
+def level1_scene():
+    """``tests/test_torch_sms1_solve.py``'s level-1 scenario (30 keyframes of
+    512 points, seed 9), made by the port: (config, build_problem's inputs,
+    correspondences, IMU chain)."""
+    cfg = load_config({"estimator": {"search_range": 3, "sms_fusion_level": 1}})
+    anchor = np.asarray(cfg.initialization.anc_ecef)
+    station = np.asarray(cfg.initialization.station_ecef)
+    ep = simulate_episode(n_keyframes=30, scan_points=512, seed=9, scan_noise=0.01,
+                          q_lb=(1, 0, 0, 0), t_lb=(0, 0, 0))
+    gnss = simulate_gnss_epochs(ep.gt_p, ep.kf_time, anchor, station, psr_noise=0.5, seed=9)
+    p_odo = ep.gt_p + 1.5 * np.random.default_rng(9).normal(size=ep.gt_p.shape)
+    sms = batch_mod.build_sms1(cfg, ep.scan, ep.scan_valid, ep.gt_p, ep.gt_q, chunk=32,
+                               device="cpu")
+    chain = batch_mod.build_imu_chain(cfg, ep.imu_acc, ep.imu_gyr, ep.imu_dt, ep.imu_valid,
+                                      device="cpu")
+    return cfg, (p_odo, ep.gt_q, ep.kf_time, gnss, anchor, 0.0, station), sms, chain
+
+
+def _level0_scene():
     cfg = GlioConfig()
     anchor = np.asarray(cfg.initialization.anc_ecef)
     station = np.asarray(cfg.initialization.station_ecef)
     kf_time, p_true, q_true, p_odo = drifted_trajectory(30, 1.0)
     gnss = simulate_gnss_epochs(p_true, kf_time, anchor, station, epoch_stride=3, seed=0)
+    return cfg, (p_odo, q_true, kf_time, gnss, anchor, 0.0, station), None, None
+
+
+# Each batch solver: (scene, solve(cfg, prob, sms, chain, lm_iters)).
+BATCH_SOLVES = {
+    "level0": (_level0_scene, lambda cfg, prob, sms, chain, n: batch_mod.optimize_batch(
+        cfg, prob, lm_iters=n)),
+    "zenith_bias": (_level0_scene, lambda cfg, prob, sms, chain, n:
+                    batch_mod.optimize_batch_atm(cfg, prob, lm_iters=n)),
+    "level1_pose": ("level1_scene", lambda cfg, prob, sms, chain, n:
+                    batch_mod.optimize_batch_sms1(cfg, prob, sms, lm_iters=n)),
+    "level1_imu": ("level1_scene", lambda cfg, prob, sms, chain, n:
+                   batch_mod.optimize_batch_sms1_imu(cfg, prob, sms, chain, lm_iters=n)),
+}
+
+
+@pytest.mark.parametrize("solve", sorted(BATCH_SOLVES))
+def test_batch_solve_records_stages_and_iterations(request, solve):
+    """Every batch solver records one span tree: ``batch.solve``, a
+    ``batch.stage`` per threshold holding each LM iteration's three parts and
+    the stage's cost read."""
+    scene, run = BATCH_SOLVES[solve]
+    cfg, inputs, sms, chain = (request.getfixturevalue(scene) if isinstance(scene, str)
+                               else scene())
     lm_iters = 2
     profiling.enable()
-    prob = batch_mod.build_problem(cfg, p_odo, q_true, kf_time, gnss, anchor, 0.0, station,
-                                   device="cpu")
-    batch_mod.optimize_batch(cfg, prob, lm_iters=lm_iters)
+    prob = batch_mod.build_problem(cfg, *inputs, device="cpu")
+    run(cfg, prob, sms, chain, lm_iters)
     profiling.disable()
     rec = profiling.records()
     names = [r.name for r in rec]
