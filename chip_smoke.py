@@ -158,8 +158,11 @@ Phases, each of which raises on failure:
     robust options): direct twice, bit-identical and within 10x JAX's own
     spread under a +-1e-9 m nudge of the odometry, then ``chol_pcg`` (14 CG
     iterations, 1.1e-2 m short of the exact solve), within 10x JAX's own
-    spread under a 1-ulp rescaling of its f32 preconditioner, its factor
-    kernel launched once an LM iteration and its solve kernel 15 times; each
+    spread under a 1-ulp rescaling of its f32 preconditioner, its three LM
+    closures captured as CUDA graphs once and replayed every LM iteration
+    (the factor and solve kernels launched by the host at the capture alone),
+    and in a second, replayed solve the factor kernel run once an LM
+    iteration and the solve kernel 15 times by the profiler's count; each
     kernel against its plain version on the first LM iteration's band
     (``block_cholesky`` within 2e-5 of the largest entry, NaN rows equal;
     ``block_cholesky_solve`` within the larger of 2e-5 of max |x| and 10x
@@ -317,6 +320,20 @@ def kernel_launches(name: str) -> int:
     tally ``<name>.launches`` (``ops/_launch.py``). A count over a call is
     the difference of two readings."""
     return profiling.tallies().get(name + ".launches", 0)
+
+
+def kernel_runs(fn, *parts):
+    """([the device's runs of the kernels whose name holds each of
+    ``parts``], result) of one run of ``fn`` under ``torch.profiler``: the
+    kernels that a CUDA graph's replay runs are counted too, which
+    ``kernel_launches`` (the host's launches) does not see."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return [sum(part in n for n in names) for part in parts], out
 
 
 def device_phase():
@@ -1528,9 +1545,12 @@ def spp_phase(dev, fx, drive, g):
 def gnss_batch_phase(dev, fx, drive, g):
     """15.3: level 0 with Doppler rows at T = 3493 on the converted epochs:
     the direct solver twice (bit-identical), then ``chol_pcg``, each held to
-    JAX's (see the gates below), its f32 factor's kernel launched once an LM
-    iteration and its solve kernel 15 times. Returns the two kernels' records
-    (``band_chol_record``, ``band_chol_solve_record``)."""
+    JAX's (see the gates below), its LM closures captured once and then
+    replayed, its f32 factor's kernel run once an LM iteration and its solve
+    kernel 15 times in a replayed solve. Returns the two kernels' records
+    (``band_chol_record``, ``band_chol_solve_record``), with the host's
+    launches (``launches``) and the device's runs in a replayed solve
+    (``runs``)."""
     kf_time, p_true, q_true, p_odo = drive[:4]
     cfg = testing.gnss_batch_config(config_mod)
     anchor = np.asarray(cfg.initialization.anc_ecef)
@@ -1555,15 +1575,34 @@ def gnss_batch_phase(dev, fx, drive, g):
     s2, (p2, q2, c2) = _sync_s(lambda: solve("direct"))
     check(torch.equal(p1, p2) and torch.equal(q1, q2) and c1 == c2,
           "two Doppler batch solves on the card differ")
-    before = kernel_launches("band_cholesky"), kernel_launches("band_cholesky_solve")
+    graphs = lambda: [profiling.tallies().get("batch.graph." + n, 0)
+                      for n in ("captures", "replays")]
+    before = kernel_launches("band_cholesky"), kernel_launches("band_cholesky_solve"), graphs()
     s3, (p3, q3, _) = _sync_s(lambda: solve("chol_pcg"))
     chol_launches = kernel_launches("band_cholesky") - before[0]
     solve_launches = kernel_launches("band_cholesky_solve") - before[1]
-    check(dev.type != "cuda" or chol_launches == n_iter,
-          f"band_cholesky launched {chol_launches} times in {n_iter} chol_pcg LM iterations")
-    check(dev.type != "cuda" or solve_launches == CHOL_PCG_APPLIES * n_iter,
-          f"band_cholesky_solve launched {solve_launches} times in {n_iter} chol_pcg LM "
-          f"iterations ({CHOL_PCG_APPLIES} applies each)")
+    captures, replays = (a - b for a, b in zip(graphs(), before[2]))
+    # On the card each LM iteration's assembly, step and trial cost is the
+    # replay of a CUDA graph (models/batch.py::lm_closures), captured at this
+    # solver's first iteration: the host launches the step's kernels only
+    # there, in the direct run before the capture and in the capture itself.
+    # A second chol_pcg solve only replays: the device's records of it count
+    # the kernels' runs inside the replays, once an LM iteration for the
+    # factor and CHOL_PCG_APPLIES times for the solve.
+    if dev.type == "cuda":
+        check(captures == 3 and replays == 3 * n_iter,
+              f"chol_pcg's LM closures: {captures} captures and {replays} replays in {n_iter} "
+              f"LM iterations (want 3 and {3 * n_iter})")
+        check(chol_launches == 2 and solve_launches == 2 * CHOL_PCG_APPLIES,
+              f"band_cholesky launched {chol_launches} and band_cholesky_solve {solve_launches} "
+              f"times by the capture (want 2 and {2 * CHOL_PCG_APPLIES})")
+        (chol_runs, solve_runs), (p4, q4, _) = kernel_runs(
+            lambda: solve("chol_pcg"), "band_chol_kernel", "band_solve_kernel")
+        check(torch.equal(p3, p4) and torch.equal(q3, q4), "two chol_pcg solves on the card differ")
+        check(chol_runs == n_iter and solve_runs == CHOL_PCG_APPLIES * n_iter,
+              f"band_cholesky ran {chol_runs} and band_cholesky_solve {solve_runs} times in the "
+              f"{n_iter} LM iterations of a replayed chol_pcg solve (want {n_iter} and "
+              f"{CHOL_PCG_APPLIES * n_iter})")
     # The direct solve: 10x JAX's own spread under a +-1e-9 m nudge of the
     # odometry. chol_pcg stops after 14 CG iterations, 1.1e-2 m short of the
     # exact solve on this drive, so its result moves with the f32 rounding
@@ -1607,11 +1646,15 @@ def gnss_batch_phase(dev, fx, drive, g):
     solve_rec = band_chol_solve_record(dev, M.Lb, (-grad * M.s).to(torch.float32))
     rec["launches"], solve_rec["launches"] = chol_launches, solve_launches
     if dev.type == "cuda":
-        k_s = chol_launches * rec["ms"] / 1e3
-        a_s = solve_launches * solve_rec["ms"] / 1e3
-        print(f"chol_pcg T={T} split by kernel times x launches: factor {k_s:.3f} s "
-              f"({chol_launches} x {rec['ms']:.3f} ms), applies {a_s:.3f} s ({solve_launches} "
-              f"x {solve_rec['ms']:.3f} ms), the rest {s3 - k_s - a_s:.3f} s of {s3:.3f} s")
+        rec["runs"], solve_rec["runs"] = chol_runs, solve_runs
+        k_s = chol_runs * rec["ms"] / 1e3
+        a_s = solve_runs * solve_rec["ms"] / 1e3
+        print(f"chol_pcg T={T}: {captures} graph captures, {replays} replays; host launches "
+              f"band_cholesky {chol_launches}, band_cholesky_solve {solve_launches} (at the "
+              f"capture); device runs in a replayed solve {chol_runs} and {solve_runs} "
+              f"(profiler); split by kernel times x runs: factor {k_s:.3f} s ({chol_runs} x "
+              f"{rec['ms']:.3f} ms), applies {a_s:.3f} s ({solve_runs} x "
+              f"{solve_rec['ms']:.3f} ms), the rest {s3 - k_s - a_s:.3f} s of {s3:.3f} s")
     return rec, solve_rec
 
 
@@ -1835,14 +1878,25 @@ def long_run_phase(dev):
     ep = testing.gnss_episode(sc, simulate_episode, simulate_gnss_epochs,
                               np.asarray(cfg.initialization.anc_ecef),
                               np.asarray(cfg.initialization.station_ecef))
+    graphs = lambda: [profiling.tallies().get("batch.graph." + n, 0)
+                      for n in ("captures", "replays")]
+    before = graphs()
     run_s, res, rows, lines, fusion_s, rec, launches, chol_launches = _gnss_pipeline(
         dev, cfg, ep, backend_fusion_every=sc["every"])
+    captures, replays = (a - b for a, b in zip(graphs(), before))
     check(dev.type != "cuda" or launches == T,
           f"knn launched {launches} times in {T} keyframes of the long run")
     n_chol, n_solve = chol_launches
-    check(dev.type != "cuda" or (n_chol > 0 and n_solve == CHOL_PCG_APPLIES * n_chol),
-          f"the long run's chol_pcg solves launched band_cholesky {n_chol} times and "
-          f"band_cholesky_solve {n_solve} times ({CHOL_PCG_APPLIES} an LM iteration)")
+    # The batch solves grow T, so each captures its three LM closures anew
+    # (models/batch.py::lm_closures); the host launches the step's kernels
+    # twice a capture (the direct run before it and the capture) and the
+    # replays run them.
+    check(dev.type != "cuda" or (captures > 0 and captures % 3 == 0 and replays > 0
+                                 and n_chol == 2 * captures // 3
+                                 and n_solve == CHOL_PCG_APPLIES * n_chol),
+          f"the long run's chol_pcg solves: {captures} graph captures, {replays} replays, "
+          f"band_cholesky launched {n_chol} times and band_cholesky_solve {n_solve} times "
+          f"(twice a step capture, {CHOL_PCG_APPLIES} applies a step)")
     nlf = rec.field("n_lidar_factors")
     check(np.array_equal(nlf, fx["n_lidar_factors"]),
           f"n_lidar_factors {nlf.tolist()} != JAX {fx['n_lidar_factors'].tolist()}")
@@ -1864,8 +1918,8 @@ def long_run_phase(dev):
           f"{10 * float(fx['sw_nudge_dp']):.3e}), tc_batch_result {d_bt:.3e} m (tol "
           f"{10 * float(fx['batch_nudge_dp']):.3e}): 10x JAX's own spread under +-1e-9 m nudges "
           f"of p0; ATE RMSE stage 1 {_rmse(res.p_sw, ep.gt_p):.3f} m, batch "
-          f"{_rmse(res.p_batch, ep.gt_p):.3f} m; band_cholesky launches {n_chol}, "
-          f"band_cholesky_solve {n_solve}")
+          f"{_rmse(res.p_batch, ep.gt_p):.3f} m; batch graph captures {captures}, replays "
+          f"{replays}; host launches band_cholesky {n_chol}, band_cholesky_solve {n_solve}")
     return launches, n_chol, n_solve
 
 

@@ -17,8 +17,10 @@ equations: analytic Jacobians, a deterministic scatter into band storage
 solver of this module runs the one loop, ``_lm_loop``, stage after stage in
 the one annealing loop, ``_anneal``, with the same spans. The loop never
 waits on the host: accept and reject are ``torch.where``s and the cost is
-read once per stage. ``build_problem`` and ``calibrate_batch_covariance``
-are host numpy, as in the JAX package.
+read once per stage. On a CUDA device the level-0 stage runs each
+iteration's assembly, step and trial cost as the replays of CUDA graphs
+(``lm_closures``). ``build_problem`` and ``calibrate_batch_covariance`` are
+host numpy, as in the JAX package.
 
 Level 1 (``sms_fusion_level=1``, at the end of this module) replaces the
 relative-pose rows by binary point-to-plane factors between keyframes i and
@@ -56,6 +58,7 @@ from ..gnss import dd as dd_mod
 from ..factors.gnss import local_to_ecef, r_ecef_local
 from ..solver import banded
 from ..utils import profiling, quat
+from ..utils.checkpoint import _leaves, cloned
 
 F64 = torch.float64
 POSE_DOF = 6  # level-0 state per keyframe: δp(3), δθ(3)
@@ -298,7 +301,9 @@ def _dd_residuals(p, prob: BatchProblem, threshold, w_dd=None):
 
 
 def _scalar(value, like):
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
+    """``value`` as a 0-d tensor of ``like``'s dtype and device, by a fill on
+    the device: a copy from the host could not be captured in a CUDA graph."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 def _dd_row_jac(p, R_el, prob: BatchProblem, threshold, w, robust=None, z=None):
@@ -695,20 +700,142 @@ def solve_batch_once(cfg, prob: BatchProblem, p0, q0, threshold,
     accuracy, as the JAX package's). ``robust`` re-derives the
     IRLS weights at the current iterate every iteration; the step is
     accepted when the cost under those same frozen weights drops. Nothing
-    here waits on the host. Returns (p, q, unweighted cost) as tensors.
+    here waits on the host. On a CUDA device the assembly, the step and the
+    trial cost are the replays of CUDA graphs that every stage and every
+    problem of the same shapes share (``lm_closures``). Returns (p, q,
+    unweighted cost) as tensors.
     """
     _check_supported(cfg, solver)
     hw = cfg.estimator.search_range + 1
     use_doppler = cfg.estimator.doppler_in_batch
     if plan is None:
         plan = assembly_plan(prob, hw, use_doppler)
-    p, q = _lm_stage(
-        p0, q0, lm_iters, hw,
-        lambda p, q: _assemble_core_impl(p, q, prob, threshold, hw, robust=robust, plan=plan,
-                                         use_doppler=use_doppler),
-        lambda band, grad: _solve_step(band, grad, solver, pcg_iters),
-        lambda p, q, w_rel, w_dd: _total_cost(p, q, prob, threshold, w_rel, w_dd, use_doppler))
+    # The threshold is data, so one graph serves every annealing stage.
+    th = torch.full((), threshold, dtype=F64, device=p0.device)
+    assemble, step, trial_cost = lm_closures(
+        (prob, plan, th), ("solve_batch_once", hw, solver, pcg_iters, use_doppler, robust),
+        lambda d, p, q: _assemble_core_impl(p, q, d[0], d[2], hw, robust=robust, plan=d[1],
+                                            use_doppler=use_doppler),
+        lambda d, band, grad: _solve_step(band, grad, solver, pcg_iters),
+        lambda d, p, q, w_rel, w_dd: _total_cost(p, q, d[0], d[2], w_rel, w_dd, use_doppler))
+    p, q = _lm_stage(p0, q0, lm_iters, hw, assemble, step, trial_cost)
     return p, q, _total_cost(p, q, prob, threshold, use_doppler=use_doppler)
+
+
+# --- the LM closures as CUDA graphs ------------------------------------------------------
+#
+# An LM iteration of the T = 3493 solve is ~3,100 small kernels whose host
+# dispatch takes several times their device time. On a CUDA device each heavy
+# closure of the iteration (assembly, step, trial cost) runs instead as the
+# replay of a CUDA graph. The graphs outlive the solve, so that every solve of
+# a problem of the same shapes (the next drive, the next stage) replays them
+# with its own data copied in. One set is kept: it holds a static copy of a
+# problem and its graphs' memory, and a problem of another signature replaces
+# it.
+
+_GRAPH_SET = None   # the _GraphSet of the latest signature
+
+
+def _signature(tree):
+    """A tree's structure, each tensor as its (shape, dtype), each other
+    value as itself: what a graph captured on the tree depends on."""
+    if isinstance(tree, torch.Tensor):
+        return tuple(tree.shape), tree.dtype
+    if isinstance(tree, tuple):
+        return tuple(_signature(x) for x in tree)
+    return tree
+
+
+def _graph_key(data, kind: tuple) -> tuple:
+    """The signature ``lm_closures`` keeps a set of graphs for."""
+    return (kind, _leaves(data)[0].device) + _signature(data)
+
+
+def _graph_set(data, kind: tuple):
+    """The graph set of ``data``'s signature: the one kept, or a new one in
+    its place (the old one freed first)."""
+    global _GRAPH_SET
+    key = _graph_key(data, kind)
+    if _GRAPH_SET is None or _GRAPH_SET.key != key:
+        _GRAPH_SET = None
+        _GRAPH_SET = _GraphSet(key, data)
+    return _GRAPH_SET
+
+
+class _GraphSet:
+    """The CUDA graphs of one signature (``key``): a static copy of the data
+    they read (``data``) and, for each closure name and argument signature,
+    (graph, static arguments, static outputs)."""
+
+    def __init__(self, key, data):
+        self.key = key
+        self.data = cloned(data)
+        self.live = data          # the data last copied in
+        self.graphs = {}
+
+    def call(self, name, fn, data, args):
+        """``fn(data, *args)`` as a replay: ``data`` is copied into the static
+        copy when it is not the data last copied in, ``args`` at every call;
+        the outputs are clones, so no result aliases a static buffer."""
+        if data is not self.live:
+            for buf, x in zip(_leaves(self.data), _leaves(data)):
+                buf.copy_(x)
+            self.live = data
+        key = (name,) + _signature(args)
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(fn, args)
+            profiling.tally("batch.graph.captures")
+        graph, static_args, static_out = self.graphs[key]
+        for buf, x in zip(static_args, args):
+            buf.copy_(x)
+        graph.replay()
+        profiling.tally("batch.graph.replays")
+        return cloned(static_out)
+
+    def _capture(self, fn, args):
+        """(graph, static arguments, static outputs) of ``fn`` on the static
+        data and copies of ``args``: one direct run on a side stream first, as
+        capture requires, then the capture."""
+        static = cloned(args)
+        stream = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            fn(self.data, *static)
+        stream.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn(self.data, *static)
+        return graph, static, out
+
+
+def lm_closures(data, kind: tuple, *fns):
+    """Each ``fn(data, *args)`` of ``fns`` as a closure of its ``args``.
+
+    ``data`` is a tree of tensors that the closures read and that stays the
+    same while they are used (a problem, its plan, a threshold); ``kind``
+    names the functions and the Python values they hold (the solver, the
+    band half-width). On a CUDA device each closure is the replay of a CUDA
+    graph captured at the first call with its signature: ``kind``, the device,
+    the structure and tensor shapes and dtypes of ``data`` and of the
+    arguments. The functions must read nothing to the host. Off the card
+    each is the direct call, tallied ``batch.graph.eager``."""
+    dev = _leaves(data)[0].device
+    if dev.type != "cuda":
+        def direct(fn):
+            def call(*args):
+                profiling.tally("batch.graph.eager")
+                return fn(data, *args)
+            return call
+        return tuple(direct(fn) for fn in fns)
+    graphs = _graph_set(data, kind)
+
+    def graphed(name, fn):
+        def call(*args):
+            with torch.cuda.device(dev):
+                return graphs.call(name, fn, data, args)
+        return call
+    return tuple(graphed(i, fn) for i, fn in enumerate(fns))
 
 
 def _lm_stage(p0, q0, lm_iters: int, hw: int, assemble, step, trial_cost, agree=None):

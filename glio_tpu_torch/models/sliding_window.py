@@ -44,7 +44,7 @@ from ..solver import dense, marginalization
 from ..solver.manifold import (POSE_DOF, WindowState, local_coordinates,
                                retract, tree_where)
 from ..utils import profiling, quat
-from ..utils.checkpoint import _leaves, _rebuild
+from ..utils.checkpoint import _leaves, cloned
 
 F64 = torch.float64
 F32 = torch.float32
@@ -213,11 +213,6 @@ def _diverse_top(w, normal, scans, Fsel: int):
 def _shift_window(w):
     """Roll out the oldest frame and duplicate the newest slot."""
     return type(w)(*(torch.cat([a[1:], a[-1:]], dim=0) for a in w))
-
-
-def cloned(tree):
-    """A (nested) named tuple of tensors with every tensor cloned."""
-    return _rebuild(tree, iter([x.clone() for x in _leaves(tree)]))
 
 
 def index_inputs(tree, i):

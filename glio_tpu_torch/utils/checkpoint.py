@@ -35,6 +35,11 @@ def _rebuild(like, leaves):
     return next(leaves)
 
 
+def cloned(tree):
+    """A (nested) named tuple of tensors with every tensor cloned."""
+    return _rebuild(tree, iter([x.clone() for x in _leaves(tree)]))
+
+
 def _host(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 

@@ -3,7 +3,8 @@ batches of keyframe pairs, the loop-closure ICP's 1024 x 25,600 among them)
 and the copy kernel against their plain versions, bit for bit, the IMU
 preintegration kernel against its loop within 1e-10, the f32
 band Cholesky factor and solve kernels against their plain versions (at
-the block sizes 6, 7 and 15) and ``chol_pcg``, the probe, the replay, the batch stage, batch level 1, stage
+the block sizes 6, 7 and 15) and ``chol_pcg``, the probe, the replay, the batch stage (and its
+LM closures as CUDA graphs against the direct calls, bit for bit), batch level 1, stage
 3, backend fusion, the LOAM features, the LiDAR odometry, SPP and the GNSS
 window on the card against the same code on the CPU.
 
@@ -199,6 +200,112 @@ def test_batch_on_card_is_deterministic_and_matches_cpu(cuda):
     assert torch.equal(p1, p2) and torch.equal(q1, q2) and c1 == c2
     np.testing.assert_allclose(p1.cpu().numpy(), pc.numpy(), rtol=0, atol=3e-4)
     np.testing.assert_allclose(c1, cc, rtol=5e-7)
+
+
+def _drive(device, seed, T=297):
+    """A level-0 problem whose GNSS noise comes from ``seed``: drives of one
+    shape (T = 297 is no other test's, so the first solve captures)."""
+    cfg = GlioConfig()
+    anchor = np.asarray(cfg.initialization.anc_ecef)
+    station = np.asarray(cfg.initialization.station_ecef)
+    kf_time, p_true, q_true, p_odo = drifted_trajectory(T)
+    gnss = simulate_gnss_epochs(p_true, kf_time, anchor, station, psr_noise=0.5, seed=seed)
+    return cfg, batch.build_problem(cfg, p_odo, q_true, kf_time, gnss, anchor, 0.0,
+                                    station, device=device)
+
+
+def _eager_closures(data, kind, *fns):
+    """``batch.lm_closures`` without graphs, as the closures were before they
+    were graphed: each the direct call, the threshold a Python float."""
+    prob, plan, threshold = data
+    data = (prob, plan, float(threshold))
+    return tuple((lambda fn: lambda *args: fn(data, *args))(fn) for fn in fns)
+
+
+def _recorded_solve(cfg, prob):
+    """``optimize_batch`` (``direct``, 4 × 10) with each LM iteration's
+    current and trial costs recorded by wrapping ``_lm_stage``, as the
+    benchmark's reference does: (p, q, stage costs, currents, trials)."""
+    stage, rec = batch._lm_stage, ([], [])
+
+    def recorded(p0, q0, lm_iters, hw, assemble, step, trial_cost, agree=None):
+        def assemble_rec(p, q):
+            out = assemble(p, q)
+            rec[0].append(out[2])
+            return out
+
+        def trial_rec(p, q, w_rel, w_dd):
+            c = trial_cost(p, q, w_rel, w_dd)
+            rec[1].append(c)
+            return c
+        return stage(p0, q0, lm_iters, hw, assemble_rec, step, trial_rec, agree)
+    batch._lm_stage = recorded
+    try:
+        return (*batch.optimize_batch(cfg, prob), *rec)
+    finally:
+        batch._lm_stage = stage
+
+
+def _graph_tallies():
+    got = profiling.tallies()
+    return [got.get("batch.graph." + n, 0) for n in ("captures", "replays", "eager")]
+
+
+def test_batch_graphs_replay_each_drives_own_data(cuda, monkeypatch):
+    """Two drives of one shape solved in turn through the graphed closures:
+    each solve, its stage costs and its 40 + 40 recorded costs equal, bit for
+    bit, those of the same solve by direct closures on the card with the
+    threshold a Python float, so the second drive's data, not the first's,
+    reaches the replayed graphs, and the threshold as a tensor changes no bit. The
+    first solve captures the three closures once; no later solve of the
+    shape captures; the recorded costs are 80 distinct tensors, read after
+    the solve."""
+    drives = [_drive(cuda, seed) for seed in (11, 12, 11)]
+    before = _graph_tallies()
+    graphed = []
+    for cfg, prob in drives:
+        graphed.append(_recorded_solve(cfg, prob))
+        if len(graphed) == 1:
+            assert _graph_tallies()[0] - before[0] == 3
+    after = _graph_tallies()
+    assert after[0] - before[0] == 3
+    assert after[1] - before[1] == 3 * 3 * 40 and after[2] == before[2]
+    monkeypatch.setattr(batch, "lm_closures", _eager_closures)
+    eager = [_recorded_solve(cfg, prob) for cfg, prob in drives]
+    assert _graph_tallies() == after
+    for g, e in zip(graphed, eager):
+        p, q, costs, current, trial = g
+        assert torch.equal(p, e[0]) and torch.equal(q, e[1]) and costs == e[2]
+        assert len(current) == len(trial) == 40
+        assert torch.equal(torch.stack(current), torch.stack(e[3]))
+        assert torch.equal(torch.stack(trial), torch.stack(e[4]))
+        assert len({c.data_ptr() for c in current + trial}) == 80
+    assert not torch.equal(graphed[0][0], graphed[1][0])
+    assert torch.equal(graphed[0][0], graphed[2][0])
+
+
+def test_batch_graph_replay_makes_no_host_sync(cuda, monkeypatch):
+    """Once a shape is captured, its graphed closures (the data copied in,
+    the replays, the clones) read nothing to the host."""
+    cfg, prob = _drive(cuda, 11, T=298)
+    batch.optimize_batch(cfg, prob, lm_iters=1)          # the captures
+    closures = batch.lm_closures
+
+    def strict(fn):
+        def call(*args):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return call
+    monkeypatch.setattr(batch, "lm_closures",
+                        lambda *a: tuple(strict(fn) for fn in closures(*a)))
+    before = _graph_tallies()
+    p, q, _ = batch.optimize_batch(cfg, _drive(cuda, 12, T=298)[1], lm_iters=2)
+    after = _graph_tallies()
+    assert after[0] == before[0] and after[1] - before[1] == 4 * 2 * 3
+    assert torch.isfinite(p).all() and torch.isfinite(q).all()
 
 
 def test_cyclic_reduction_on_card_matches_cpu(cuda):
